@@ -1,25 +1,27 @@
-"""Device and precision of the port.
+"""Device and factor precision of the port.
 
-The port factors and solves in float64, the production precision of the
-JAX package (its ``mf_jax.JaxMultifrontal`` picks float64 where it is
-native). The device is always named by the caller: ``resolve_device``
-never falls back from a missing card to the CPU.
+The device is always named by the caller: ``resolve_device`` never falls
+back from a missing card to the CPU. The factor precision is float64 (the
+production precision, the reference's own) or float32 (the fast path that
+the refiner tries first under "auto", escalating to float64 when it
+fails); ``resolve_precision`` maps the caller's spec to a torch dtype.
 """
 
 from __future__ import annotations
 
 import torch
 
-DTYPE = torch.float64
+PRECISIONS = {"f32": torch.float32, "f64": torch.float64}
 
 
 def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     """The torch.device for ``name``: "cuda" (or "cuda:<i>") when a card is
     present, raising when none is; "cpu" only when the caller names it.
 
-    For CUDA it also turns TF32 off for matrix products. Every product of
-    the port is float64, which TF32 never touches; the setting is stated so
-    that no float32 product added later runs at TF32's ~3 digits."""
+    For CUDA it also keeps every float32 product in full float32: TF32
+    (about three decimal digits) would wreck a direct solver's float32
+    factors and refinement cycles, as bf16 passes would on the TPU, where
+    the JAX package runs under default_matmul_precision("highest")."""
     dev = torch.device(name)
     if dev.type == "cpu":
         return dev
@@ -34,4 +36,20 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
                            f"{torch.cuda.device_count()} CUDA device(s) "
                            f"exist")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     return dev
+
+
+def resolve_precision(spec: str | None,
+                      device: torch.device) -> torch.dtype:
+    """The factor dtype for ``spec``: "f32", "f64", or "auto"/None.
+    "auto" follows the JAX engine's rule (mf_jax.JaxMultifrontal): float32
+    first on the accelerator, with the facade escalating to float64 when
+    refinement fails; float64 on the CPU."""
+    if spec is None or spec == "auto":
+        return torch.float32 if device.type == "cuda" else torch.float64
+    if spec not in PRECISIONS:
+        raise ValueError(f"unknown precision {spec!r} (expected f32, f64 or "
+                         f"auto)")
+    return PRECISIONS[spec]

@@ -4,12 +4,15 @@ The port of the JAX package's ``drivers/solve.py`` on a torch device: read
 the gen_A matrix file, factor it once, then for each comma-separated
 variable group read the tracer field(s) from the inout file, flatten them
 through the index maps, solve, scatter back preserving land values and
-write in place. The distributed options (``-n`` above 1,
+write in place. ``--prec`` picks the factor precision (f64, the default;
+f32; or auto, f32 on the card), the explicit form of the JAX package's
+NK_PREC. The distributed options (``-n`` above 1,
 ``--rhs-devices``), factor files (``--factors``) and ``--memplan`` are not
 yet ported: they exit with status 1.
 
 Run as ``python -m nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.solve
-[-D lvl] [--device cuda|cpu] -v VARS matrix.nc tracer.nc``.
+[-D lvl] [--device cuda|cpu] [--prec f64|f32|auto] -v VARS matrix.nc
+tracer.nc``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ def parse_var_groups(vars_arg: str, coupled_tracer_cnt: int) -> list[list[str]]:
 
 def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
               backend: str = "auto", dbg_lvl: int = 0, rhs_chunk: int = 32,
-              device: str | torch.device = "cuda") -> dict:
+              device: str | torch.device = "cuda",
+              precision: str = "f64") -> dict:
     """Factor, solve every variable group and write the results in place.
     Returns {"residuals": {group: rel residual}, "groups": [...],
     "factorization": the factorization object}."""
@@ -58,7 +62,8 @@ def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
 
     groups = parse_var_groups(vars_arg, nt)
 
-    kwargs = {} if backend == "scipy" else {"maps": maps, "device": device}
+    kwargs = ({} if backend == "scipy" else
+              {"maps": maps, "device": device, "precision": precision})
     with timed("factor"):
         fac = factor(matrix, backend=backend, **kwargs)
 
@@ -113,6 +118,10 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device of the multifrontal backend (cuda, "
                         "or cpu when named)")
+    p.add_argument("--prec", default="f64", choices=["f64", "f32", "auto"],
+                   help="factor precision of the multifrontal backend "
+                        "(auto: f32 on cuda, escalating to f64 when "
+                        "refinement fails; f64 on cpu)")
     p.add_argument("--memplan", action="store_true",
                    help="print the per-device memory plan (" + NOT_PORTED
                         + ")")
@@ -147,7 +156,8 @@ def main(argv=None) -> int:
     try:
         run_solve(args.matrix_fname, args.inout_fname, args.vars,
                   backend=args.backend, dbg_lvl=args.dbg_lvl,
-                  rhs_chunk=args.rhs_chunk, device=args.device)
+                  rhs_chunk=args.rhs_chunk, device=args.device,
+                  precision=args.prec)
     except Exception as e:  # noqa: BLE001 - CLI boundary
         print(f"solve: {e}", file=sys.stderr)
         return 1

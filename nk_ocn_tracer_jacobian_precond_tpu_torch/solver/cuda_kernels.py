@@ -1,20 +1,24 @@
 """The port's hand-written CUDA kernels and their plain PyTorch versions.
 
-Two kernels carry the f64 factor path, each a port of a Pallas kernel of
-the JAX package (``solver/pallas_kernels.py``):
+Three kernels carry the factor path, each a port of a Pallas kernel of the
+JAX package (``solver/pallas_kernels.py``), each at the factor dtype:
 
-* ``pivoted_panel`` (``csrc/pivoted_panel.cu``) replaces
-  ``pallas_pivoted_panel_df64``: the batched restricted-pivot panel LU.
+* ``pivoted_panel`` (``csrc/pivoted_panel.cu``): the batched
+  restricted-pivot panel LU. At float64 it is K1, replacing
+  ``pallas_pivoted_panel_df64``; at float32 it is K2, replacing
+  ``pallas_pivoted_panel``. One template, two instances.
 * ``ell_assemble`` (``csrc/ell_assemble.cu``) replaces
   ``pallas_ell_assemble`` and the rest of ``mf_jax._assemble``: front
-  assembly with its spill entries and identity padding.
+  assembly with its spill entries and identity padding (K3, both dtypes).
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. The kernels are compiled with
+tensors it launches the kernel or raises. Both dispatch on the dtype
+(float32 or float64; any other raises). The kernels are compiled with
 ``nvcc`` into ``build/torch_kernels/<hash of the sources>/`` at the first
 launch (or by ``build()``) and bound with ctypes. Nothing here imports or
 compiles CUDA code when the module is imported. ``LAUNCHES`` counts the
-kernel launches, so a run can show that its main path went through them.
+kernel launches per kernel and dtype, so a run can show that its main path
+went through them.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "--fmad=false", "-Xptxas", "-v")
 
-LAUNCHES = {"pivoted_panel": 0, "ell_assemble": 0}
+LAUNCHES = {"pivoted_panel_f64": 0, "pivoted_panel_f32": 0,
+            "ell_assemble_f64": 0, "ell_assemble_f32": 0}
+SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 BUILD_LOG = ""          # ptxas' register / shared-memory report of the build
 
 _lib = None
@@ -80,13 +86,15 @@ def build() -> ctypes.CDLL:
             BUILD_LOG = res.stdout + res.stderr
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        lib.nk_pivoted_panel_f64.restype = ctypes.c_int
-        lib.nk_pivoted_panel_f64.argtypes = [
-            _VP, _VP, _VP, _I64, _I64, _I64, _I64, ctypes.c_double, _VP]
-        lib.nk_ell_assemble_f64.restype = ctypes.c_int
-        lib.nk_ell_assemble_f64.argtypes = [
-            _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-            _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_int, _VP]
+        for sfx, tau_t in (("f64", ctypes.c_double), ("f32", ctypes.c_float)):
+            fn = getattr(lib, f"nk_pivoted_panel_{sfx}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = [_VP, _VP, _VP, _I64, _I64, _I64, _I64, tau_t, _VP]
+            fn = getattr(lib, f"nk_ell_assemble_{sfx}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_int,
+                           _VP]
         _lib = lib
         return lib
 
@@ -104,6 +112,14 @@ def _route(*tensors: torch.Tensor) -> str:
     return dev.type
 
 
+def _float_dtype(t: torch.Tensor, name: str) -> str:
+    """The kernel suffix ("f64" or "f32") of a floating tensor's dtype."""
+    if t.dtype not in SUFFIX:
+        raise TypeError(f"{name}: expected float32 or float64, got "
+                        f"{t.dtype}")
+    return SUFFIX[t.dtype]
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -119,7 +135,7 @@ def _stream(dev: torch.device) -> int:
 
 
 # --------------------------------------------------------------------------
-# K1: pivoted panel
+# K1 (f64) and K2 (f32): pivoted panel
 # --------------------------------------------------------------------------
 
 _SPLIT = 134217729.0        # 2**27 + 1, Veltkamp's splitter for binary64
@@ -142,22 +158,35 @@ def _two_prod(a, b):
     return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
 
 
+def _round_to_odd(s, err):
+    """s + err rounded to odd, for float64 s = RN(s + err): an inexact s
+    with an even last bit moves to its odd neighbour on the side of the
+    exact sum."""
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(fix, torch.nextafter(s, toward), s)
+
+
 def fma_plain(a, b, c):
-    """a * b + c rounded once, from separately rounded tensor ops (Boldo and
-    Melquiond's emulation through rounding to odd; exact barring overflow
-    and underflow). The panel's rank-1 update is a fused multiply-add, as
-    XLA on the CPU compiles the JAX reference and as the kernel computes it,
-    and each PyTorch op here rounds on its own, so no backend contracts it
-    differently."""
+    """a * b + c rounded once to the operands' dtype (float64 or float32),
+    from separately rounded tensor ops (Boldo and Melquiond's emulation
+    through rounding to odd; exact barring overflow and underflow). The
+    panel's rank-1 update is a fused multiply-add at both dtypes, as XLA on
+    the CPU compiles the JAX reference and as the kernel computes it, and
+    each PyTorch op here rounds on its own, so no backend contracts it
+    differently.
+
+    float32 takes the float64 route: a * b is exact there (24 + 24 bits),
+    the sum is rounded to odd in float64 (53 >= 2 * 24 + 2 bits), and the
+    one rounding to float32 is then correct. Rounding the float64 sum to
+    nearest first would round twice."""
+    if a.dtype == torch.float32:
+        s, err = _two_sum(a.double() * b.double(), c.double())
+        return _round_to_odd(s, err).float()
     uh, ul = _two_prod(a, b)
     th, tl = _two_sum(c, uh)
     s, err = _two_sum(tl, ul)
-    # round to odd: an inexact s with an even last bit moves to its odd
-    # neighbour on the side of the exact sum
-    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
-    s = torch.where(fix, torch.nextafter(s, toward), s)
-    return th + s
+    return th + _round_to_odd(s, err)
 
 
 def pivoted_panel_plain(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
@@ -197,14 +226,16 @@ def pivoted_panel_plain(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
 
 def pivoted_panel(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
                   tau: float = 0.0):
-    """Restricted-pivot panel LU: Pan (B, R, T) float64 contiguous, p_arr
-    (B,) int32 true eliminated counts, tau the GESP threshold. Returns (a
-    new factored panel, piv (B, T) int32). CPU tensors take the plain
-    version; CUDA tensors launch csrc/pivoted_panel.cu."""
+    """Restricted-pivot panel LU: Pan (B, R, T) float64 (K1) or float32
+    (K2) contiguous, p_arr (B,) int32 true eliminated counts, tau the GESP
+    threshold (taken at Pan's dtype). Returns (a new factored panel, piv
+    (B, T) int32). CPU tensors take the plain version; CUDA tensors launch
+    csrc/pivoted_panel.cu."""
     if Pan.dim() != 3:
         raise ValueError(f"Pan: expected (B, R, T), got {tuple(Pan.shape)}")
     B, R, T = Pan.shape
-    _check(Pan, "Pan", torch.float64, (B, R, T))
+    sfx = _float_dtype(Pan, "Pan")
+    _check(Pan, "Pan", Pan.dtype, (B, R, T))
     _check(p_arr, "p_arr", torch.int32, (B,))
     if T > 128 or R < T:
         raise ValueError(f"panel (R={R}, T={T}) needs T <= 128 and R >= T")
@@ -213,13 +244,13 @@ def pivoted_panel(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
     lib = build()
     out = Pan.clone()
     piv = torch.empty((B, T), dtype=torch.int32, device=Pan.device)
-    err = lib.nk_pivoted_panel_f64(out.data_ptr(), piv.data_ptr(),
-                                   p_arr.data_ptr(), B, R, T, int(off),
-                                   float(tau), _stream(Pan.device))
+    err = getattr(lib, f"nk_pivoted_panel_{sfx}")(
+        out.data_ptr(), piv.data_ptr(), p_arr.data_ptr(), B, R, T, int(off),
+        float(tau), _stream(Pan.device))
     if err:
-        raise RuntimeError(f"pivoted_panel kernel launch failed: CUDA "
+        raise RuntimeError(f"pivoted_panel_{sfx} kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["pivoted_panel"] += 1
+    LAUNCHES[f"pivoted_panel_{sfx}"] += 1
     return out, piv
 
 
@@ -252,8 +283,9 @@ def ell_assemble_plain(nzval_ext, a_col, a_csrc, a_pos, a_src, p_arr,
 
 def ell_assemble(nzval_ext, a_col, a_csrc, a_pos, a_src, p_arr,
                  N: int, P: int, spill: bool = True) -> torch.Tensor:
-    """Assemble one round's fronts F (B, N, N) float64 from the CSR values
-    nzval_ext (nnz + 1,) (last entry zero) and the round plan's ELL
+    """Assemble one round's fronts F (B, N, N) at nzval_ext's dtype
+    (float64 or float32) from the CSR values nzval_ext (nnz + 1,) (last
+    entry zero) and the round plan's ELL
     (a_col, a_csrc: (B, N, W) int64) and spill (a_pos, a_src: (B, E)
     int64) maps; p_arr (B,) int32. CPU tensors take the plain version; CUDA
     tensors launch csrc/ell_assemble.cu."""
@@ -263,7 +295,8 @@ def ell_assemble(nzval_ext, a_col, a_csrc, a_pos, a_src, p_arr,
     E = a_pos.shape[1]
     if R != N:
         raise ValueError(f"a_col has {R} rows for fronts of size {N}")
-    _check(nzval_ext, "nzval_ext", torch.float64, (nzval_ext.shape[0],))
+    sfx = _float_dtype(nzval_ext, "nzval_ext")
+    _check(nzval_ext, "nzval_ext", nzval_ext.dtype, (nzval_ext.shape[0],))
     for name, t, shape in (("a_col", a_col, (B, N, W)),
                            ("a_csrc", a_csrc, (B, N, W)),
                            ("a_pos", a_pos, (B, E)), ("a_src", a_src, (B, E))):
@@ -273,14 +306,15 @@ def ell_assemble(nzval_ext, a_col, a_csrc, a_pos, a_src, p_arr,
         return ell_assemble_plain(nzval_ext, a_col, a_csrc, a_pos, a_src,
                                   p_arr, N, P, spill)
     lib = build()
-    F = torch.zeros((B, N, N), dtype=torch.float64, device=nzval_ext.device)
-    err = lib.nk_ell_assemble_f64(
+    F = torch.zeros((B, N, N), dtype=nzval_ext.dtype,
+                    device=nzval_ext.device)
+    err = getattr(lib, f"nk_ell_assemble_{sfx}")(
         F.data_ptr(), nzval_ext.data_ptr(), a_col.data_ptr(),
         a_csrc.data_ptr(), a_pos.data_ptr(), a_src.data_ptr(),
         p_arr.data_ptr(), B, N, W, E, P, nzval_ext.shape[0] - 1,
         int(bool(spill)), _stream(nzval_ext.device))
     if err:
-        raise RuntimeError(f"ell_assemble kernel launch failed: CUDA "
+        raise RuntimeError(f"ell_assemble_{sfx} kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["ell_assemble"] += 1
+    LAUNCHES[f"ell_assemble_{sfx}"] += 1
     return F

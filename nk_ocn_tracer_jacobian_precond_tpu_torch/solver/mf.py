@@ -2,10 +2,12 @@
 solve per RHS batch, iterative refinement to direct-solver accuracy.
 
 The port of the JAX package's ``solver/mf.py::MultifrontalFactorization``
-on the torch engine (``mf_torch.TorchMultifrontal``), float64 only. The
-symbolic analysis and the Ruiz equilibration are the reference's own
-host code; the refinement is its host-exact plain iterative refinement,
-with scipy GMRES-IR as the backstop when plain refinement stalls.
+on the torch engine (``mf_torch.TorchMultifrontal``). The symbolic
+analysis and the Ruiz equilibration are the reference's own host code.
+Every refined solve goes through the device refiner (``refine.py``,
+FGMRES-IR3), as the JAX facade's solves do under x64; when float32 factors
+leave the refiner hopeless, the facade refactors in float64 and solves
+again.
 """
 
 from __future__ import annotations
@@ -17,33 +19,53 @@ import numpy as np
 import torch
 
 from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import SparseMatrix
-from nk_ocn_tracer_jacobian_precond_tpu.solver.api import (
-    iterative_refinement)
+from nk_ocn_tracer_jacobian_precond_tpu.solver.memplan import plan_memory
 from nk_ocn_tracer_jacobian_precond_tpu.solver.mf import (
     _rel_residuals, equilibrate)
 from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
     SymbolicFactorization, symbolic_from_matrix)
 from nk_ocn_tracer_jacobian_precond_tpu.utils import dbg, timed
 
-from ..device import resolve_device
+from ..device import resolve_device, resolve_precision
 from .mf_torch import TorchMultifrontal
+from .refine import DeviceRefiner
+
+
+def _device_memory_limit(device: torch.device) -> int | None:
+    """The card's total memory in bytes; None on the CPU, where the plan
+    against host RAM is the memory plan's job, not the escalation's."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
 
 
 class MultifrontalFactorization:
     """Factor ``matrix`` on ``device`` ("cuda" by default; "cpu" only when
-    named) and solve it to a relative residual of 100 * refine_tol.
-    ``timings`` holds the seconds of each phase of the last factorization
-    (symbolic, equilibrate, plan, factor)."""
+    named) at ``precision`` ("f64" by default, "f32", or "auto": f32 on
+    the card, f64 on the CPU) and solve it to a relative residual of
+    100 * refine_tol. With float32 factors, a solve whose refinement gives
+    up (raw preconditioner error above ``giveup``) refactors in float64
+    and solves again, unless ``escalate`` is False; ``escalation`` then
+    records the float32 attempt (its max relative residual and refiner
+    stats). ``timings`` holds the seconds of each phase of the last
+    factorization (symbolic, equilibrate, plan, factor; escalate once
+    escalated)."""
 
     def __init__(self, matrix: SparseMatrix, leaf_size: int = 32,
                  refine_tol: float = 1e-13, maps=None,
                  sym: SymbolicFactorization | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", precision="f64",
+                 escalate: bool = True, giveup: float = 0.25):
         self.device = resolve_device(device)
+        prec = resolve_precision(precision, self.device)
         self.matrix = matrix
         self.A = matrix.to_scipy()
         self.refine_tol = refine_tol
+        self.escalate = escalate
+        self.giveup = giveup
         self.timings: dict[str, float] = {}
+        self._refiner = None
+        self.escalation: dict | None = None
         if sym is None:
             if maps is None:
                 raise ValueError(
@@ -60,17 +82,20 @@ class MultifrontalFactorization:
         self.timings["equilibrate"] = time.perf_counter() - t0
         with timed("numeric factorization (torch)"):
             self.engine = TorchMultifrontal(sym, self._fac_matrix,
-                                            self.device)
+                                            self.device, prec=prec)
         self.timings.update(self.engine.timings)
 
     def refactor(self, matrix: SparseMatrix | None = None) -> None:
         """Numeric refactorization with the same sparsity pattern (new
-        Jacobian values each Newton iteration). The old factors are freed
-        before the new ones are built."""
+        Jacobian values each Newton iteration), at the engine's current
+        precision. The old factors are freed before the new ones are
+        built; the refiner keeps its memo and takes the new values."""
         if matrix is not None:
             self.matrix = matrix
             self.A = matrix.to_scipy()
             self._fac_matrix, self.dr, self.dc = equilibrate(matrix)
+            if self._refiner is not None:
+                self._refiner.rebind(self.matrix, dr=self.dr, dc=self.dc)
         with timed("numeric refactorization"):
             self.engine.refactor(self._fac_matrix)
         self.timings["factor"] = self.engine.timings["factor"]
@@ -98,46 +123,66 @@ class MultifrontalFactorization:
         y = np.asarray(self.engine.solve(scaled_b), dtype=np.float64)
         return self.dc[:, None] * y if y.ndim == 2 else self.dc * y
 
+    def _device_refiner(self) -> DeviceRefiner:
+        if self._refiner is None:
+            self._refiner = DeviceRefiner(
+                self.engine, self.matrix, dr=self.dr, dc=self.dc,
+                tol=max(self.refine_tol, 1e-13), giveup=self.giveup)
+        return self._refiner
+
+    def _maybe_escalate_precision(self, rel: float) -> bool:
+        """Refactor in float64 when float32 factors left a residual that no
+        refinement tier repaired (eps32 x element growth is O(1) on deep
+        trees). Returns True if the engine was rebuilt; False when
+        escalation is off, the factors are float64 already, or float64
+        factors would not fit the card (with a warning)."""
+        if not self.escalate or self.engine.prec != torch.float32:
+            return False
+        peak = plan_memory(self.engine.plans, 1, 8).peak_per_device
+        lim = _device_memory_limit(self.device)
+        if lim and peak > 0.92 * lim:
+            warnings.warn(
+                f"float32 factors failed (max rel residual {rel:.3e}) but "
+                f"float64 factors need ~{peak / 1e9:.1f} GB vs "
+                f"~{lim / 1e9:.1f} GB on {self.device}: rerun with "
+                f"precision='f64' on a larger card", RuntimeWarning,
+                stacklevel=3)
+            return False
+        dbg(1, f"solve escalation: float32 factors left max relative "
+               f"residual {rel:.3e} (> {100 * self.refine_tol:.1e}); "
+               f"refactoring in float64")
+        self.escalation = dict(max_rel=float(rel),
+                               refiner=dict(self._refiner.stats))
+        # free the float32 engine (factors, device constants) and the
+        # refiner before the float64 build: both resident at once is an
+        # avoidable OOM
+        self.engine = self._refiner = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with timed("float64 escalation refactorization"):
+            self.engine = TorchMultifrontal(self.sym, self._fac_matrix,
+                                            self.device, prec=torch.float64)
+        self.timings["escalate"] = time.perf_counter() - t0
+        self.timings.update(self.engine.timings)
+        return True
+
     def solve(self, b: np.ndarray, refine: bool = True) -> np.ndarray:
         b = np.asarray(b, dtype=np.float64)
         single = b.ndim == 1
         B = b[:, None] if single else b
-        with timed("mf solve"):
-            X = self._precond_solve(B)
-        if refine:
-            with timed("mf refine"):
-                X = iterative_refinement(self.A, self._precond_solve, B, X,
-                                         tol=self.refine_tol)
+        if not refine:
+            with timed("mf solve"):
+                X = self._precond_solve(B)
+            return X[:, 0] if single else X
+        X = self._device_refiner().solve(B)
+        rel = _rel_residuals(self.A, X, B)
+        if (rel.max() > 100 * self.refine_tol
+                and self._maybe_escalate_precision(rel.max())):
+            X = self._device_refiner().solve(B)
             rel = _rel_residuals(self.A, X, B)
-            if rel.max() > 100 * self.refine_tol:
-                # plain refinement stalled: Krylov-accelerated refinement
-                # with the factorization as preconditioner, then polish the
-                # true residual with plain steps
-                with timed("mf gmres-ir"):
-                    X = self._gmres_ir(B, X)
-                    X = iterative_refinement(self.A, self._precond_solve,
-                                             B, X, tol=self.refine_tol)
-                rel = _rel_residuals(self.A, X, B)
-                if rel.max() > 100 * self.refine_tol:
-                    warnings.warn(
-                        f"solve did not reach target accuracy: max relative "
-                        f"residual {rel.max():.3e} > "
-                        f"{100 * self.refine_tol:.1e} after GMRES-IR "
-                        f"(ill-conditioned matrix or factorization "
-                        f"breakdown)", RuntimeWarning, stacklevel=2)
+        if rel.max() > 100 * self.refine_tol:
+            warnings.warn(f"device GMRES-IR stalled at max relative "
+                          f"residual {rel.max():.3e}", RuntimeWarning,
+                          stacklevel=2)
         return X[:, 0] if single else X
-
-    def _gmres_ir(self, B: np.ndarray, X0: np.ndarray) -> np.ndarray:
-        from scipy.sparse.linalg import LinearOperator, gmres
-        n = self.A.shape[0]
-        M = LinearOperator((n, n), matvec=lambda v: self._precond_solve(v))
-        X = np.empty_like(X0)
-        for j in range(B.shape[1]):
-            x, info = gmres(self.A, B[:, j], x0=X0[:, j], M=M,
-                            rtol=self.refine_tol, restart=30, maxiter=20)
-            X[:, j] = x
-            if info != 0:
-                warnings.warn(f"gmres-ir did not converge for rhs {j} "
-                              f"(info={info})", RuntimeWarning, stacklevel=2)
-            dbg(1, f"gmres-ir rhs {j}: info={info}")
-        return X

@@ -1,4 +1,4 @@
-"""Multifrontal numeric phase in PyTorch: f64 factor and multi-RHS solve.
+"""Multifrontal numeric phase in PyTorch: factor and multi-RHS solve.
 
 The port of the JAX package's ``solver/mf_jax.py`` single-device engine.
 The factorization runs the round plans of ``plan.build_plan`` in
@@ -7,15 +7,18 @@ dependency order; each round is a batch of padded dense fronts (B, N, N):
 1. assembly from the CSR values (``cuda_kernels.ell_assemble``, kernel K3);
 2. extend-add of the children's Schur complements (``extend_add``);
 3. blocked LU of the pivot block with partial pivoting restricted to the
-   fully-summed rows (``partial_factor``: the panel kernel K1
-   ``cuda_kernels.pivoted_panel``, TRSM, trailing GEMM), or the library
-   LU for rounds of at most two fronts;
+   fully-summed rows (``partial_factor``: the panel kernel
+   ``cuda_kernels.pivoted_panel``, K1 at f64 and K2 at f32, TRSM, trailing
+   GEMM), or the library LU for rounds of at most two fronts;
 4. packing of the pivot block's diagonal-block inverses for the solve.
 
 The stored factors per round are K (B, P, P) (the ``pack_diag_inv``
 layout), U12 (B, P, M), L21 (B, M, P) and perm (B, P). The solve walks
 the rounds forward then backward over a (flat_len + 1, nrhs) workspace
-whose last row takes every pad index. All arithmetic is float64.
+whose last row takes every pad index. Factors, Schur stacks and the
+workspace are in the engine's factor dtype ``prec`` (float64, or float32);
+rounds with P >= HI_ROUND_MIN_P run their substitutions in float64 on
+float32 factors.
 
 Index tensors go to the device once, as int64 (p_arr, a count, as int32).
 Functions that take F update it in place where that saves memory, and say
@@ -35,11 +38,16 @@ from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
     SymbolicFactorization)
 from nk_ocn_tracer_jacobian_precond_tpu.utils import dbg, timed
 
-from ..device import DTYPE
 from . import cuda_kernels as ck
 from .plan import build_plan
 
 PANEL = 128
+# float32 engines run the substitutions of rounds with P >= this in float64
+# (mf_jax.JaxMultifrontal._hi_round): element growth concentrates in the
+# tree-top rounds, and their sequential block chains would otherwise
+# accumulate eps32 error on top of the factors' own rounding
+HI_ROUND_MIN_P = 4096
+NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 # --------------------------------------------------------------------------
@@ -277,44 +285,57 @@ def set_own(W, vals, cells_own):
     return W
 
 
-def fwd_round(W, K, U12, L21, perm, cells_own, cells_bor, bs: int = PANEL):
+def fwd_round(W, K, U12, L21, perm, cells_own, cells_bor, bs: int = PANEL,
+              hi: bool = False):
     """Forward substitution for one round, batched over fronts, in place
-    on the workspace W (flat_len + 1, nrhs)."""
+    on the workspace W (flat_len + 1, nrhs). ``hi``: the arithmetic runs in
+    float64 on transient upcasts of the factors, and the results are stored
+    back at W's dtype."""
     nrhs = W.shape[1]
     rhs = W[cells_own]                                   # (B, P, nrhs)
     rhs = torch.gather(rhs, 1, perm[:, :, None].expand(-1, -1, nrhs))
+    if hi:
+        rhs, K, L21 = rhs.double(), K.double(), L21.double()
     y = block_lower_apply(K, rhs, bs)
-    upd = L21 @ y
-    set_own(W, y, cells_own)
+    upd = (L21 @ y).to(W.dtype)
+    set_own(W, y.to(W.dtype), cells_own)
     W.index_add_(0, cells_bor.reshape(-1), upd.reshape(-1, nrhs), alpha=-1)
     return W
 
 
-def bwd_round(W, K, U12, L21, cells_own, cells_bor, bs: int = PANEL):
-    """Backward substitution x = U11^-1 (rhs - U12 xb), in place on W."""
-    rhs = W[cells_own] - U12 @ W[cells_bor]
-    x = block_upper_apply(K, rhs, bs)
-    return set_own(W, x, cells_own)
+def bwd_round(W, K, U12, L21, cells_own, cells_bor, bs: int = PANEL,
+              hi: bool = False):
+    """Backward substitution x = U11^-1 (rhs - U12 xb), in place on W
+    (``hi``: see fwd_round)."""
+    rhs, xb = W[cells_own], W[cells_bor]
+    if hi:
+        rhs, xb, K, U12 = rhs.double(), xb.double(), K.double(), U12.double()
+    x = block_upper_apply(K, rhs - U12 @ xb, bs)
+    return set_own(W, x.to(W.dtype), cells_own)
 
 
-def solve_rounds(W, factors, consts, bs: int):
-    """The whole triangular sweep over all rounds (forward, then backward)."""
-    for (K, U12, L21, perm), cc in zip(factors, consts):
-        W = fwd_round(W, K, U12, L21, perm, cc["own"], cc["bor"], bs)
-    for (K, U12, L21, _), cc in zip(reversed(factors), reversed(consts)):
-        W = bwd_round(W, K, U12, L21, cc["own"], cc["bor"], bs)
+def solve_rounds(W, factors, consts, bs: int, hi=None):
+    """The whole triangular sweep over all rounds (forward, then backward);
+    hi[r] runs round r's substitutions in float64 (see fwd_round)."""
+    hi = hi or [False] * len(factors)
+    for (K, U12, L21, perm), cc, h in zip(factors, consts, hi):
+        W = fwd_round(W, K, U12, L21, perm, cc["own"], cc["bor"], bs, h)
+    for (K, U12, L21, _), cc, h in zip(reversed(factors), reversed(consts),
+                                       reversed(hi)):
+        W = bwd_round(W, K, U12, L21, cc["own"], cc["bor"], bs, h)
     return W
 
 
 def factors_from_jax(jax_engine, device) -> tuple:
     """The per-round (K, U12, L21, perm) tensors of a JaxMultifrontal
-    engine's factors on ``device``, read through np.asarray (no jax import
-    here): the port's solve can then run on the JAX engine's factors."""
+    engine's factors on ``device``, at the JAX engine's own dtype, read
+    through np.asarray (no jax import here): the port's solve can then run
+    on the JAX engine's factors."""
     device = torch.device(device)
     out = []
     for K, U12, L21, perm, _ in jax_engine.factors:
-        out.append(tuple(torch.from_numpy(np.array(a, dtype=np.float64))
-                         .to(device) for a in (K, U12, L21))
+        out.append(tuple(torch.from_numpy(np.array(a)).to(device)
+                         for a in (K, U12, L21))
                    + (torch.from_numpy(np.array(perm, dtype=np.int64))
                       .to(device),))
     return tuple(out)
@@ -325,20 +346,24 @@ def factors_from_jax(jax_engine, device) -> tuple:
 # --------------------------------------------------------------------------
 
 class TorchMultifrontal:
-    """Single-device float64 numeric engine over the round plans: factor
+    """Single-device numeric engine over the round plans: factor
     (``refactor`` for new values on the same pattern) and multi-RHS
-    solve. ``device`` is a torch.device (see device.resolve_device)."""
+    solve. ``device`` is a torch.device (see device.resolve_device),
+    ``prec`` the factor dtype (torch.float64 or torch.float32)."""
 
     def __init__(self, sym: SymbolicFactorization, matrix: SparseMatrix,
-                 device: torch.device, factorize: bool = True):
+                 device: torch.device, factorize: bool = True,
+                 prec: torch.dtype = torch.float64):
+        if prec not in NUMPY_DTYPE:
+            raise ValueError(f"unsupported factor dtype {prec}")
         self.sym = sym
         self.device = torch.device(device)
-        self.prec = DTYPE
+        self.prec = prec
         self.flat_len = sym.flat_len
         self.timings: dict[str, float] = {}
         t0 = time.perf_counter()
         with timed("build round plans"):
-            # bytes_per_elem stays at its default of 4 even at f64, as the
+            # bytes_per_elem stays at its default of 4 at either dtype, as the
             # JAX engine calls it: the chunking (and so every round and
             # pivot) must be the same
             self.plans = build_plan(sym, matrix, batch_multiple=1)
@@ -351,7 +376,8 @@ class TorchMultifrontal:
             self._pack_bs = 1024
         else:
             self._pack_bs = 512
-        dbg(1, "memory plan: " + plan_memory(self.plans, 1, 8).summary())
+        dbg(1, "memory plan: "
+            + plan_memory(self.plans, 1, prec.itemsize).summary())
         with timed("device constants"):
             self._consts = self._device_constants()
         self.timings["plan"] = time.perf_counter() - t0
@@ -390,11 +416,12 @@ class TorchMultifrontal:
         # drop the previous factors first: both sets resident at once
         # would double the peak
         self.factors = None
-        nz = np.zeros(len(matrix.nzval) + 1, dtype=np.float64)
+        nz = np.zeros(len(matrix.nzval) + 1, dtype=NUMPY_DTYPE[self.prec])
         nz[:-1] = matrix.nzval
-        # GESP static-pivot threshold, rounded through f32 as the JAX
-        # engine does even at f64
-        eps = float(np.finfo(np.float64).eps)
+        # GESP static-pivot threshold: sqrt(eps) of the factor precision
+        # times the largest (factor-precision) value, rounded through f32
+        # as the JAX engine does at either dtype
+        eps = float(np.finfo(nz.dtype).eps)
         amax = float(np.max(np.abs(nz))) if len(matrix.nzval) else 1.0
         self._tau = float(np.float32(np.sqrt(eps) * amax))
         t0 = time.perf_counter()
@@ -430,9 +457,22 @@ class TorchMultifrontal:
             factors.append((K, U12, L21, perm))
         return tuple(factors)
 
-    def solve(self, b: np.ndarray) -> np.ndarray:
+    def _hi_round(self, plan) -> bool:
+        return plan.P >= HI_ROUND_MIN_P and self.prec == torch.float32
+
+    def solve_workspace(self, W: torch.Tensor) -> torch.Tensor:
+        """Solve in place on W (flat_len + 1, nrhs), a tensor of the factor
+        dtype on the engine's device holding the right-hand sides above its
+        zero dump row; returns W. The device-side solve the refiner applies
+        as its preconditioner (mf_jax.JaxMultifrontal._solve_program)."""
         if self.factors is None:
             raise RuntimeError("no numeric factors: call refactor() first")
+        return solve_rounds(W, self.factors, self._consts, self._pack_bs,
+                            [self._hi_round(p) for p in self.plans])
+
+    def solve(self, b: np.ndarray) -> np.ndarray:
+        """x = A^-1 b on the host arrays b (n,) or (n, nrhs); the RHS is
+        staged in the factor dtype, the result returned as float64."""
         B = np.asarray(b, dtype=np.float64)
         single = B.ndim == 1
         if single:
@@ -441,6 +481,6 @@ class TorchMultifrontal:
                         device=self.device)
         W[:self.flat_len] = torch.from_numpy(np.ascontiguousarray(B)).to(
             self.device)
-        W = solve_rounds(W, self.factors, self._consts, self._pack_bs)
-        X = W[:self.flat_len].cpu().numpy()
+        W = self.solve_workspace(W)
+        X = W[:self.flat_len].cpu().numpy().astype(np.float64)
         return X[:, 0] if single else X

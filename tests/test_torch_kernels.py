@@ -20,7 +20,7 @@ from nk_ocn_tracer_jacobian_precond_tpu.ops import (AssemblyOptions,
                                                      PerTracerOptions)
 from nk_ocn_tracer_jacobian_precond_tpu.solver import mf_jax
 from nk_ocn_tracer_jacobian_precond_tpu.solver.pallas_kernels import (
-    pallas_ell_assemble, pallas_pivoted_panel_df64)
+    pallas_ell_assemble, pallas_pivoted_panel, pallas_pivoted_panel_df64)
 from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
     symbolic_from_matrix)
 from nk_ocn_tracer_jacobian_precond_tpu.testdata import make_circ_file
@@ -121,6 +121,108 @@ def test_fma_plain_rounds_once():
 
 
 # --------------------------------------------------------------------------
+# K2: pivoted panel at f32
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,R,T,off", PANEL_CASES)
+@pytest.mark.parametrize("tau", [0.0, 0.05])
+def test_panel_plain_matches_xla_f32(B, R, T, off, tau):
+    """The f32 data of test_pallas_panel_matches_xla: bit for bit against
+    mf_jax._pivoted_panel at f32 and against the Pallas kernel K2 in
+    interpret mode, pivots equal. XLA:CPU contracts the reference's update
+    into an FMA at f32 too (test_xla_update_is_fused_f32), so the plain
+    version rounds it once."""
+    rng = np.random.default_rng(0)
+    Pan = rng.standard_normal((B, R, T)).astype(np.float32)
+    p_arr = np.linspace(0, off + R, B).astype(np.int32)
+    Px, piv_x = mf_jax._pivoted_panel(jnp.asarray(Pan), off,
+                                      jnp.asarray(p_arr), tau)
+    Pp, piv_p = pallas_pivoted_panel(jnp.asarray(Pan), off,
+                                     jnp.asarray(p_arr), tau, interpret=True)
+    Pt, piv_t = ck.pivoted_panel(T_(Pan), off, T_(p_arr), tau)
+    assert Pt.dtype == torch.float32
+    for Pw, piv_w in ((Px, piv_x), (Pp, piv_p)):
+        assert np.array_equal(piv_t.numpy(), np.asarray(piv_w))
+        assert np.array_equal(Pt.numpy(), np.asarray(Pw))
+
+
+def test_xla_update_is_fused_f32():
+    """The answer the f32 plain version rests on: with the update rounded
+    twice (a * b, then the sum) it leaves the JAX reference on the
+    growing p = 0 front, so XLA:CPU does fuse it at f32."""
+    rng = np.random.default_rng(0)
+    B, R, T, off = PANEL_CASES[1]
+    Pan = rng.standard_normal((B, R, T)).astype(np.float32)
+    p_arr = np.linspace(0, off + R, B).astype(np.int32)
+    Px, _ = mf_jax._pivoted_panel(jnp.asarray(Pan), off, jnp.asarray(p_arr),
+                                  0.0)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ck, "fma_plain", lambda a, b, c: a * b + c)
+    try:
+        Pu, _ = ck.pivoted_panel_plain(T_(Pan), off, T_(p_arr), 0.0)
+    finally:
+        mp.undo()
+    assert not np.array_equal(Pu.numpy(), np.asarray(Px))
+
+
+@pytest.mark.parametrize("B,R,T,off", [(4, 256, 128, 128), (2, 128, 128, 0),
+                                       (2, 512, 64, 0)])
+def test_panel_plain_factors_correctly_f32(B, R, T, off):
+    """P A = L U at f32, every row eligible. The bound is the one of
+    test_pallas_panel_factors_correctly: float32 elimination of a random
+    panel leaves ~1e-4 absolute error on O(10) entries, 2e-3 is far below
+    any pivoting mistake."""
+    rng = np.random.default_rng(3)
+    A0 = rng.standard_normal((B, R, T)).astype(np.float32)
+    p_arr = np.full(B, off + R, dtype=np.int32)
+    Pt, piv = ck.pivoted_panel(T_(A0), off, T_(p_arr), 0.0)
+    Pp, piv = Pt.numpy().astype(np.float64), piv.numpy()
+    for b in range(B):
+        A = A0[b].astype(np.float64)
+        for k in range(T):
+            s = piv[b, k]
+            A[[k, s]] = A[[s, k]]
+        L = np.vstack([np.tril(Pp[b][:T], -1) + np.eye(T), Pp[b][T:]])
+        U = np.triu(Pp[b][:T])
+        np.testing.assert_allclose(L @ U, A, rtol=0, atol=2e-3)
+
+
+def test_fma_plain_rounds_once_f32():
+    """fma_plain at f32 is a * b + c correctly rounded to f32 (checked
+    against exact rational arithmetic), including the case where rounding
+    the exact f64 product-sum to nearest first lands on an f32 midpoint
+    and a second rounding would go the wrong way."""
+    rng = np.random.default_rng(12)
+    n = 3000
+    a = (rng.standard_normal(n) * np.exp(rng.uniform(-10, 10, n)))
+    b = rng.standard_normal(n)
+    c = rng.standard_normal(n) * np.exp(rng.uniform(-10, 10, n))
+    a, b, c = (x.astype(np.float32) for x in (a, b, c))
+    c[:500] = -(a[:500].astype(np.float64) * b[:500]).astype(np.float32)
+    # exact a * b + c = 1 + 2^-23 + 2^-24 - 2^-60: just below a midpoint
+    a[-1], b[-1], c[-1] = (2.0 ** -24 * (1 + 2.0 ** -18), 1 - 2.0 ** -18,
+                           1 + 2.0 ** -23)
+    got = ck.fma_plain(T_(a), T_(b), T_(c)).numpy()
+    assert got.dtype == np.float32
+    want = np.array([_to_f32(Fraction(float(x)) * Fraction(float(y))
+                             + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)])
+    assert np.array_equal(got, want)
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert twice[-1] != got[-1]
+
+
+def _to_f32(q: Fraction) -> np.float32:
+    """The rational q rounded to nearest float32, ties to even (by
+    comparing the neighbours of a close candidate exactly)."""
+    f = np.float32(float(q))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda x: (abs(Fraction(float(x)) - q),
+                                     int(np.array(x).view(np.int32)) & 1))
+
+
+# --------------------------------------------------------------------------
 # K3: ELL front assembly
 # --------------------------------------------------------------------------
 
@@ -169,6 +271,23 @@ def test_ell_assemble_plain_matches_jax_scatter(spill_plans):
         assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+def test_ell_assemble_plain_matches_jax_scatter_f32(spill_plans):
+    """Every round at f32, bit for bit against _assemble(impl="scatter")."""
+    plans, nz = spill_plans
+    nz32 = nz.astype(np.float32)
+    for p in plans:
+        spill = bool((p.a_pos < p.N * p.N).any())
+        want = mf_jax._assemble(
+            jnp.asarray(nz32), jnp.asarray(p.a_col), jnp.asarray(p.a_csrc),
+            jnp.asarray(p.a_pos), jnp.asarray(p.a_src), jnp.asarray(p.p_arr),
+            N=p.N, P=p.P, spill=spill, impl="scatter")
+        got = ck.ell_assemble(*_torch_args(p, nz, torch.float32), p.N, p.P,
+                              spill)
+        assert got.dtype == torch.float32
+        assert np.asarray(want).dtype == np.float32
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 def test_ell_part_matches_pallas_f32(spill_plans):
     """The ELL store alone (no spill, no identity) at f32, bit for bit
     against the Pallas kernel in interpret mode."""
@@ -202,9 +321,14 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
         ck.pivoted_panel(torch.empty(2, 8, 8, dtype=torch.float64,
                                      device="meta"), 0,
                          p_arr.to("meta"), 0.0)
-    with pytest.raises(TypeError):
-        ck.pivoted_panel(torch.zeros(2, 8, 8, dtype=torch.float32), 0,
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ck.pivoted_panel(torch.zeros(2, 8, 8, dtype=torch.float16), 0,
                          p_arr, 0.0)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ck.ell_assemble(torch.zeros(3, dtype=torch.bfloat16),
+                        *(torch.zeros(2, 4, 1, dtype=torch.int64),) * 2,
+                        *(torch.zeros(2, 1, dtype=torch.int64),) * 2,
+                        p_arr, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
         ck.pivoted_panel(torch.zeros(2, 8, 16,
                                      dtype=torch.float64)[:, :, :8], 0,

@@ -107,3 +107,34 @@ def test_run_solve_reports_residuals(workflow, tmp_path):
     assert out["groups"] == [[v] for v in VARS]
     assert max(out["residuals"].values()) <= 1e-10
     assert isinstance(out["factorization"], MultifrontalFactorization)
+
+
+@pytest.mark.parametrize("prec", ["f32", "auto"])
+def test_cli_prec(workflow, tmp_path, prec):
+    """--prec f32 factors in float32 (refining, or escalating to float64);
+    --prec auto is float64 on the CPU. Either way the contract holds."""
+    mat, before, outs = workflow
+    path = str(tmp_path / "t.nc")
+    shutil.copy(before, path)
+    out = solve.run_solve(mat, path, ",".join(VARS), device="cpu",
+                          precision=prec)
+    assert max(out["residuals"].values()) <= 1e-10
+    fac = out["factorization"]
+    if prec == "auto":
+        assert fac.engine.prec == torch.float64 and fac.escalation is None
+    else:
+        assert (fac.engine.prec == torch.float32) == (fac.escalation is None)
+    maps = load_ind_maps(mat)
+    for var in VARS:
+        x = maps.flatten_field(_read(path, var))
+        x_j = maps.flatten_field(_read(outs["jax"], var))
+        assert np.abs(x - x_j).max() <= 1e-10 * np.abs(x_j).max()
+
+
+def test_cli_rejects_unknown_prec(workflow, capsys):
+    mat, before, _ = workflow
+    with pytest.raises(SystemExit) as exc:
+        solve.main(["--device", "cpu", "--prec", "bf16", "-v", VARS[0], mat,
+                    before])
+    assert exc.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
