@@ -9,19 +9,23 @@ its hand-written CUDA kernels on the way:
 1. device: a CUDA card must be present (no CPU fallback);
 2. build: compile the kernels from csrc/ with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the gx3 main path gives it (pivots equal, values bit for bit,
-   P A = L U for the panel), with kernel and plain times: the panel at f64
-   (K1) and f32 (K2), the assembly (K3) at both;
+   the shapes the gx3 main path gives it and at tall panels (R = 4096 and
+   8192) that the panel kernel walks in column slabs (pivots, the
+   composed permutation and values bit for bit, P A = L U for the panel),
+   with kernel, plain and library times and the bound of each shape: the
+   panel at f64 (K1) and f32 (K2), the assembly (K3) at both;
 4. engine parity: the bench "tiny" problem factored through the kernels
    and through their plain versions (swapped in here), same perms and
    solutions, at f64 and at f32; at f32 also the fused f32 FGMRES path on
    the card (tiny's f32 factors refine by plain IR alone, so the refiner
    starts in its memoized Krylov phase);
 5. main path at f64: POP's 3-degree grid (gx3, 100x116x25, seed 7, 154,386
-   rows), gen_A, then drivers.solve.run_solve on cuda over four tracers;
-   every residual <= 1e-10, land cells unchanged, every kernel launched on
+   rows), the port's own gen_A, then drivers.solve.run_solve on cuda over
+   four tracers; every residual <= 1e-10, land cells unchanged, every kernel launched on
    the rounds that use it; then the steady refactor and the 4-RHS solve
-   timed;
+   timed, a synchronized stage breakdown of one steady refactor (which
+   must call no seq_to_perm) and torch.profiler's kernel count and device
+   busy share of another;
 6. main path at f32: the same through run_solve(..., precision="f32"): K2
    and K3-f32 on every f32 round, whether the refiner reached the contract
    on f32 factors or the facade escalated to f64 (then K1 and K3-f64 run
@@ -69,11 +73,19 @@ LU_BOUND = {"f64": 1e-12, "f32": 2e-3}
 GX3 = dict(imt=100, jmt=116, km=25)
 TINY = dict(imt=24, jmt=20, km=8)
 TRACERS = ("IAGE_CUR", "PO4_CUR", "DOP_CUR", "O2_CUR")
-# panel shapes (B, R, T, off): tests/test_pallas_kernels.py's cases and
-# gx3 plan panels with B > 2
+# panel shapes (B, R, T, off): tests/test_pallas_kernels.py's cases, gx3
+# plan panels with B > 2, and tall panels that the kernel walks in column
+# slabs (R = 4096 and 8192)
 PANEL_SHAPES = [(4, 256, 128, 128), (3, 128, 128, 0), (2, 512, 64, 0),
                 (2, 128, 128, 0), (256, 512, 128, 0), (16, 640, 128, 0),
-                (16, 128, 128, 512), (4, 128, 128, 640)]
+                (16, 128, 128, 512), (4, 128, 128, 640), (3, 4096, 128, 0),
+                (4, 8192, 128, 0)]
+
+
+# published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM
+# bytes per second, and FLOP/s of FP64 and FP32 outside the tensor cores
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
 
 
 def say(msg: str) -> None:
@@ -99,14 +111,48 @@ def median_ms(fn, device, reps: int) -> float:
     return float(np.median(times))
 
 
+def event_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms from CUDA events around ``reps``
+    back-to-back calls, after one warm-up (wrapper work included)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float, sfx: str):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for nbytes of traffic and flops of arithmetic at the dtype's peak."""
+    t_b = nbytes / HBM_BPS * 1e3
+    t_o = flops / PEAK_FLOPS[sfx] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def panel_bound(B: int, R: int, T: int, sfx: str):
+    """The panel's bound: the panel read once and written once, piv, perm
+    and p_arr; B fronts of sum_k (R-k-1) divisions and (R-k-1)(T-k-1)
+    FMAs (two operations each)."""
+    item = 8 if sfx == "f64" else 4
+    nbytes = 2 * B * R * T * item + B * T * 4 + B * R * 8 + B * 4
+    flops = B * sum((R - k - 1) * (1 + 2 * (T - k - 1)) for k in range(T))
+    return bound(nbytes, flops, sfx)
+
+
 def make_problem(d: Path, dims: dict, tracers=()):
     """The bench.py problem (seed 7, centered advection, isop_file hmix,
     file vmix, const sink 1.21e-4): circulation file, optional tracer file,
     gen_A matrix file."""
-    from nk_ocn_tracer_jacobian_precond_tpu.drivers.gen_a import run_gen_a
-    from nk_ocn_tracer_jacobian_precond_tpu.ops import (AssemblyOptions,
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.gen_a import run_gen_a
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops import (AssemblyOptions,
                                                          PerTracerOptions)
-    from nk_ocn_tracer_jacobian_precond_tpu.testdata import (
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.testdata import (
         make_circ_file, make_tracer_file)
     circ, mat = str(d / "circ.nc"), str(d / "matrix.nc")
     make_circ_file(circ, seed=7, **dims)
@@ -146,19 +192,22 @@ def panel_backward_error(A, Pp, piv) -> float:
 
 
 def check_panel(ck, device, sfx, B, R, T, off, p_arr, tau, seed):
-    """Kernel vs plain on one random panel, required bit for bit: returns
-    (max abs difference, the input panel)."""
+    """Kernel vs plain on one random panel, required bit for bit (values,
+    piv and perm): returns (max abs difference, the input panel)."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
     Pan = torch.randn((B, R, T), generator=g,
                       dtype=getattr(torch, DTYPES[sfx]), device=device)
-    Pk, pk = ck.pivoted_panel(Pan, off, p_arr, tau)
-    Pp, pp = ck.pivoted_panel_plain(Pan, off, p_arr, tau)
+    Pk, pk, permk = ck.pivoted_panel(Pan, off, p_arr, tau)
+    Pp, pp, permp = ck.pivoted_panel_plain(Pan, off, p_arr, tau)
     sync(device)
     name = KID[sfx]
     if not torch.equal(pk, pp):
         raise AssertionError(f"{name} {B, R, T, off} tau={tau}: pivots "
                              f"differ from the plain version")
+    if permk.dtype != torch.int64 or not torch.equal(permk, permp):
+        raise AssertionError(f"{name} {B, R, T, off} tau={tau}: perm "
+                             f"differs from the plain version")
     if not torch.equal(Pk, Pp):
         raise AssertionError(f"{name} {B, R, T, off} tau={tau}: values "
                              f"differ from the plain version by "
@@ -166,9 +215,17 @@ def check_panel(ck, device, sfx, B, R, T, off, p_arr, tau, seed):
     return float((Pk - Pp).abs().max()), Pan
 
 
+def library_panel(Pan):
+    """torch.linalg.lu_factor_ex on the same (B, R, T) batch: with every
+    row eligible and tau = 0 the same elimination (yardstick only)."""
+    import torch
+    return torch.linalg.lu_factor_ex(Pan)
+
+
 def phase_panel(ck, device, plans, sfx: str) -> dict:
     """K1 (f64) or K2 (f32) against the plain version: the PANEL_SHAPES,
-    then every panel of one gx3 factor, timed."""
+    then every panel of one gx3 factor, with kernel, plain and library
+    times and the bound, summed over the factor."""
     import torch
     name = KID[sfx]
     err = 0.0
@@ -182,13 +239,15 @@ def phase_panel(ck, device, plans, sfx: str) -> dict:
         full = torch.full((B,), off + R, dtype=torch.int32, device=device)
         _, Pan = check_panel(ck, device, sfx, B, R, T, off, full, 0.0,
                              100 + i)
-        Pk, pk = ck.pivoted_panel(Pan, off, full, 0.0)
+        Pk, pk, _ = ck.pivoted_panel(Pan, off, full, 0.0)
         bwd = panel_backward_error(Pan, Pk, pk)
         if not bwd <= LU_BOUND[sfx]:
             raise AssertionError(f"{name} {B, R, T, off}: P A - L U = "
                                  f"{bwd:.3e} > {LU_BOUND[sfx]:.0e}")
-        say(f"phase 3 {name} {(B, R, T, off)}: piv equal, bitwise equal, "
-            f"P A = L U to {bwd:.2e}")
+        C, nb = ck.panel_launch_config(B, R, T, Pan.element_size(),
+                                       ck.active_clusters)
+        say(f"phase 3 {name} {(B, R, T, off)} cluster {C} slab {nb}: piv, "
+            f"perm and values bitwise equal, P A = L U to {bwd:.2e}")
     # one gx3 factor's worth of panels: every panel of every round with
     # B > 2, on random data with the round's own p_arr
     shapes: dict = {}
@@ -198,24 +257,59 @@ def phase_panel(ck, device, plans, sfx: str) -> dict:
         for off in range(0, p.P, 128):
             key = (p.B, p.P - off, min(128, p.P - off), off)
             shapes.setdefault(key, [0, p.p_arr])[0] += 1
-    ms = plain_ms = 0.0
+    tot = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0)
+    bound_by = set()
     for i, ((B, R, T, off), (count, pa)) in enumerate(sorted(shapes.items())):
         p_arr = torch.from_numpy(pa).to(device)
         e, Pan = check_panel(ck, device, sfx, B, R, T, off, p_arr, 0.05,
                              200 + i)
         err = max(err, e)
-        t_k = median_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05),
+        t_k = event_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05), 20)
+        t_w = median_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05),
                         device, 10)
-        t_p = median_ms(lambda: ck.pivoted_panel_plain(Pan, off, p_arr,
-                                                       0.05), device, 3)
-        ms += count * t_k
-        plain_ms += count * t_p
-        say(f"phase 3 {name} gx3 panel {(B, R, T, off)} x{count}: kernel "
-            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bitwise equal")
+        t_p = event_ms(lambda: ck.pivoted_panel_plain(Pan, off, p_arr,
+                                                      0.05), 2)
+        t_l = event_ms(lambda: library_panel(Pan), 10)
+        b_ms, b_by = panel_bound(B, R, T, sfx)
+        bound_by.add(b_by)
+        for k, v in (("ms", t_k), ("wall_ms", t_w), ("plain_ms", t_p),
+                     ("library_ms", t_l), ("bound_ms", b_ms)):
+            tot[k] += count * v
+        C, nb = ck.panel_launch_config(B, R, T, Pan.element_size(),
+                                       ck.active_clusters)
+        say(f"phase 3 {name} gx3 panel {(B, R, T, off)} x{count} cluster "
+            f"{C}: kernel {t_k:.4f} ms (wall {t_w:.4f}), plain {t_p:.3f} "
+            f"ms, lu_factor_ex {t_l:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), bitwise equal")
     say(f"phase 3 {name} per gx3 factor "
-        f"({sum(c for c, _ in shapes.values())} panels): kernel {ms:.3f} "
-        f"ms, plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"({sum(c for c, _ in shapes.values())} panels): kernel "
+        f"{tot['ms']:.3f} ms (wall {tot['wall_ms']:.3f}), plain "
+        f"{tot['plain_ms']:.3f} ms, lu_factor_ex {tot['library_ms']:.3f} "
+        f"ms, bound {tot['bound_ms']:.4f} ms")
+    del tot["wall_ms"]
+    return dict(max_abs_err=err, bound_by="/".join(sorted(bound_by)), **tot)
+
+
+def library_assemble(nzd, a_col, a_csrc, B: int, N: int):
+    """One index_put_ of the same ELL entries into zeroed fronts (the ELL
+    part of K3's function; yardstick only)."""
+    import torch
+    R, W = a_col.shape[1:]
+    F = torch.zeros((B, N, N), dtype=nzd.dtype, device=nzd.device)
+    bi = torch.arange(B, device=nzd.device)[:, None, None].expand(B, R, W)
+    ri = torch.arange(R, device=nzd.device)[None, :, None].expand(B, R, W)
+    return F.index_put_((bi, ri, a_col), nzd[a_csrc], accumulate=True)
+
+
+def assemble_bound(p, nnz: int, sfx: str):
+    """K3's bound: the fronts written once, the ELL and spill maps and
+    the CSR values read once; no arithmetic to speak of."""
+    item = 8 if sfx == "f64" else 4
+    E = p.a_pos.shape[1]
+    nbytes = (p.B * p.N * p.N * item + 2 * p.B * p.N * p.a_col.shape[2] * 8
+              + 2 * p.B * E * 8 + p.B * 4 + (nnz + 1) * item)
+    return bound(nbytes, 0.0, sfx)
 
 
 def phase_assemble(ck, device, plans, nzval, sfx: str) -> dict:
@@ -224,7 +318,8 @@ def phase_assemble(ck, device, plans, nzval, sfx: str) -> dict:
     nz[:-1] = nzval
     dtype = getattr(torch, DTYPES[sfx])
     nzd = torch.from_numpy(nz).to(device=device, dtype=dtype)
-    err = ms = plain_ms = 0.0
+    err = 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for rnd, p in enumerate(plans):
         args = [torch.from_numpy(a).to(device=device, dtype=torch.int64)
                 for a in (p.a_col, p.a_csrc, p.a_pos, p.a_src)]
@@ -238,19 +333,24 @@ def phase_assemble(ck, device, plans, nzval, sfx: str) -> dict:
                                  f"from the plain version")
         err = max(err, float((Fk - Fp).abs().max()))
         del Fk, Fp
-        t_k = median_ms(lambda: ck.ell_assemble(nzd, *args, p_arr, p.N,
-                                                p.P, spill), device, 10)
-        t_p = median_ms(lambda: ck.ell_assemble_plain(nzd, *args, p_arr,
-                                                      p.N, p.P, spill),
-                        device, 5)
-        ms += t_k
-        plain_ms += t_p
+        t_k = event_ms(lambda: ck.ell_assemble(nzd, *args, p_arr, p.N,
+                                               p.P, spill), 10)
+        t_p = event_ms(lambda: ck.ell_assemble_plain(nzd, *args, p_arr,
+                                                     p.N, p.P, spill), 5)
+        t_l = event_ms(lambda: library_assemble(nzd, args[0], args[1], p.B,
+                                                p.N), 10)
+        b_ms, _ = assemble_bound(p, len(nzval), sfx)
+        for k, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                     ("bound_ms", b_ms)):
+            tot[k] += v
         say(f"phase 3 K3 {sfx} gx3 round {rnd} (B, P, N, W, E) = "
             f"{(p.B, p.P, p.N, p.a_col.shape[2], p.a_pos.shape[1])}: "
-            f"bitwise equal, kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
-    say(f"phase 3 K3 {sfx} per gx3 factor ({len(plans)} rounds): "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            f"bitwise equal, kernel {t_k:.4f} ms, plain {t_p:.3f} ms, "
+            f"index_put_ {t_l:.4f} ms, bound {b_ms:.4f} ms (bytes)")
+    say(f"phase 3 K3 {sfx} per gx3 factor ({len(plans)} rounds): kernel "
+        f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, index_put_ "
+        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
+    return dict(max_abs_err=err, bound_by="bytes", **tot)
 
 
 # --------------------------------------------------------------------------
@@ -259,8 +359,8 @@ def phase_assemble(ck, device, plans, nzval, sfx: str) -> dict:
 
 def phase_parity(ck, device, work: Path, precision: str) -> None:
     import torch
-    from nk_ocn_tracer_jacobian_precond_tpu.grid.indmap import load_ind_maps
-    from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import (
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
         read_matrix_file)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
         MultifrontalFactorization)
@@ -350,8 +450,8 @@ def check_tracers(mat: str, before: str, after: str):
     """Residual of every tracer of ``after`` (solved from ``before``),
     land cells unchanged; returns ({tracer: residual}, A, B)."""
     from scipy.io import netcdf_file
-    from nk_ocn_tracer_jacobian_precond_tpu.grid.indmap import load_ind_maps
-    from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import (
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
         read_matrix_file)
     matrix = read_matrix_file(mat)
     maps = load_ind_maps(mat)
@@ -408,6 +508,105 @@ def steady(fac, A, Bm) -> dict:
                 steady_refiner=dict(fac._refiner.stats))
 
 
+def stage_breakdown(fac, device) -> dict:
+    """One steady refactor with a synchronize around each stage of the
+    round loop: exclusive ms per stage (a stage's time less that of the
+    stages it calls), and the calls of seq_to_perm made in it (none: the
+    panel kernel composes the permutation)."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
+        cuda_kernels as ck, mf_torch)
+    incl: dict = {}
+    child: dict = {}
+    calls: dict = {}
+    stack: list = []
+    top = [0.0]
+    patched = []
+
+    def timed_stage(owner, attr, name):
+        real = getattr(owner, attr)
+
+        def run(*args, **kw):
+            sync(device)
+            stack.append(name)
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                sync(device)
+                dt = (time.perf_counter() - t0) * 1e3
+                stack.pop()
+                incl[name] = incl.get(name, 0.0) + dt
+                calls[name] = calls.get(name, 0) + 1
+                if stack:
+                    child[stack[-1]] = child.get(stack[-1], 0.0) + dt
+                else:
+                    top[0] += dt
+        patched.append((owner, attr, real))
+        setattr(owner, attr, run)
+
+    sfx = ck.SUFFIX[fac.engine.prec]
+    for owner, attr, name in (
+            (ck, "ell_assemble", f"K3 ell_assemble_{sfx}"),
+            (ck, "pivoted_panel", f"{KID[sfx]} pivoted_panel_{sfx}"),
+            (ck, "seq_to_perm", "seq_to_perm"),
+            (mf_torch, "extend_add", "extend_add"),
+            (mf_torch, "pack_diag_inv", "pack_diag_inv"),
+            (mf_torch, "partial_factor_small_batch",
+             "tree-top library LU (B <= 2)"),
+            (mf_torch, "partial_factor",
+             "partial_factor rest (row gather, TRSM, GEMM)")):
+        timed_stage(owner, attr, name)
+    try:
+        t0 = time.perf_counter()
+        fac.refactor()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, attr, real in reversed(patched):
+            setattr(owner, attr, real)
+    # (on the CPU the plain panel composes it through seq_to_perm)
+    if device.type == "cuda" and calls.get("seq_to_perm", 0):
+        raise AssertionError(f"the steady refactor called seq_to_perm "
+                             f"{calls['seq_to_perm']} times")
+    excl = {k: v - child.get(k, 0.0) for k, v in incl.items()}
+    stages = {k: round(v, 3)
+              for k, v in sorted(excl.items(), key=lambda kv: -kv[1])}
+    stages["engine walk outside the stages"] = round(wall - top[0], 3)
+    return dict(synced_refactor_ms=round(wall, 3), stages_ms=stages,
+                stage_calls=calls)
+
+
+def device_busy(fac, device) -> dict:
+    """torch.profiler over one steady refactor: CUDA kernels launched and
+    the union of their intervals as a share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fac.refactor()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    return dict(profiled_refactor_ms=round(wall_us / 1e3, 3),
+                device_kernels=len(spans),
+                device_busy_share=(round(busy / wall_us, 4) if spans
+                                   else "not measured"),
+                top_kernels_by_count=top)
+
+
 def phase_main(ck, device, mat: str, tracer: str, precision: str,
                phase: int) -> dict:
     """drivers.solve.run_solve over the four tracers at ``precision``,
@@ -452,6 +651,12 @@ def phase_main(ck, device, mat: str, tracer: str, precision: str,
         run_refiner=run_refiner, max_residual=float(max(res.values())),
         peak_mem_gb=peak_cold / 1e9)
     stats.update(steady(fac, A, Bm))
+    if precision == "f64":
+        stats["breakdown"] = stage_breakdown(fac, device)
+        try:
+            stats["profile"] = device_busy(fac, device)
+        except Exception as e:  # noqa: BLE001 - a measurement, not a check
+            stats["profile"] = f"not measured ({type(e).__name__}: {e})"
     stats.update(peak_mem_after_refactor_gb=torch.cuda.max_memory_allocated(
         device) / 1e9, launches=launches)
     if precision == "f32" and escalated:
@@ -495,10 +700,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (the port's smoke run "
                          "needs a card; it has no CPU fallback)")
-    from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import (
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
         read_matrix_file)
-    from nk_ocn_tracer_jacobian_precond_tpu.grid.indmap import load_ind_maps
-    from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.symbolic import (
         symbolic_from_matrix)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.device import (
         resolve_device)

@@ -23,12 +23,11 @@ import sys
 import numpy as np
 import torch
 
-from nk_ocn_tracer_jacobian_precond_tpu.grid.indmap import load_ind_maps
-from nk_ocn_tracer_jacobian_precond_tpu.io import fields, netcdf3
-from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import read_matrix_file
-from nk_ocn_tracer_jacobian_precond_tpu.utils import dbg, set_dbg_lvl, timed
-
+from ..grid.indmap import load_ind_maps
+from ..io import fields, netcdf3
+from ..io.matrixfile import read_matrix_file
 from ..solver.api import factor, residual_norm
+from ..utils import dbg, set_dbg_lvl, timed
 
 NOT_PORTED = "not yet ported to the torch package"
 

@@ -4,9 +4,12 @@ Three kernels carry the factor path, each a port of a Pallas kernel of the
 JAX package (``solver/pallas_kernels.py``), each at the factor dtype:
 
 * ``pivoted_panel`` (``csrc/pivoted_panel.cu``): the batched
-  restricted-pivot panel LU. At float64 it is K1, replacing
+  restricted-pivot panel LU, which also composes the pivot swaps into the
+  row permutation. At float64 it is K1, replacing
   ``pallas_pivoted_panel_df64``; at float32 it is K2, replacing
-  ``pallas_pivoted_panel``. One template, two instances.
+  ``pallas_pivoted_panel``. One template, two instances, each front on a
+  thread-block cluster whose shared memory holds the panel
+  (``panel_launch_config`` picks the cluster size and the column slab).
 * ``ell_assemble`` (``csrc/ell_assemble.cu``) replaces
   ``pallas_ell_assemble`` and the rest of ``mf_jax._assemble``: front
   assembly with its spill entries and identity padding (K3, both dtypes).
@@ -86,10 +89,15 @@ def build() -> ctypes.CDLL:
             BUILD_LOG = res.stdout + res.stderr
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
+        lib.nk_pivoted_panel_smem.restype = _I64
+        lib.nk_pivoted_panel_smem.argtypes = [_I64, _I64, _I64]
+        lib.nk_pivoted_panel_active_clusters.restype = ctypes.c_int
+        lib.nk_pivoted_panel_active_clusters.argtypes = [_I64] * 4
         for sfx, tau_t in (("f64", ctypes.c_double), ("f32", ctypes.c_float)):
             fn = getattr(lib, f"nk_pivoted_panel_{sfx}")
             fn.restype = ctypes.c_int
-            fn.argtypes = [_VP, _VP, _VP, _I64, _I64, _I64, _I64, tau_t, _VP]
+            fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
+                           tau_t, _I64, _I64, _VP]
             fn = getattr(lib, f"nk_ell_assemble_{sfx}")
             fn.restype = ctypes.c_int
             fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
@@ -189,6 +197,128 @@ def fma_plain(a, b, c):
     return th + _round_to_odd(s, err)
 
 
+def seq_to_perm(piv, R: int):
+    """Compose a pivot-swap sequence (B, T) into a row permutation (B, R)
+    int64: perm[b, i] = panel-relative source row that ends up at i
+    (mf_jax._seq_to_perm)."""
+    B, T = piv.shape
+    perm = torch.arange(R, device=piv.device).repeat(B, 1)
+    bidx = torch.arange(B, device=piv.device)
+    piv = piv.to(torch.int64)
+    for k in range(T):
+        sel = piv[:, k]
+        a = perm[:, k].clone()
+        perm[:, k] = perm[bidx, sel]
+        perm[bidx, sel] = a
+    return perm
+
+
+# what the panel kernel's launch may use on an H100 (csrc/pivoted_panel.cu)
+# threads per CTA: 512 for one CTA per front, 256 in a cluster
+PANEL_THREADS = {"solo": 512, "cluster": 256}
+PANEL_MAX_CLUSTER = 8       # the portable cluster size
+PANEL_MAX_T = 128
+SMEM_BLOCK = 232448         # 227 KB: a block's dynamic shared memory
+SMEM_SM = 233472            # 228 KB per SM, 1 KB of it reserved per block
+SMEM_RESERVED = 1024
+SMS = 132
+THREADS_SM = 2048
+
+
+def panel_smem_bytes(rows: int, nb: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA of the panel kernel holding `rows`
+    rows of a slab `nb` columns wide (the kernel's smem_bytes)."""
+    warps = PANEL_THREADS["solo"] // 32
+    s = rows * nb + 5 * nb + rows + 2 + warps
+    i = rows + 6 + warps
+    return (s * itemsize + i * 4 + 15) // 16 * 16
+
+
+# the launch rule's cost model, fitted to scripts/panel_sweep.py on an H100
+# 80GB HBM3 at 700 W: a step costs its CTA's rows, times PANEL_SOLO_ROWS
+# for one CTA of 512 threads; a cluster of C > 1 CTAs adds
+# PANEL_CLUSTER_COST rows' worth for its barrier and distributed shared
+# memory; CTAs sharing an SM slow each other by (CTAs per SM) **
+# PANEL_SHARE
+PANEL_SOLO_ROWS = 0.6
+PANEL_CLUSTER_COST = 100
+PANEL_SHARE = 0.5
+
+
+def estimate_active_clusters(C: int, rows: int, nb: int,
+                             itemsize: int) -> int:
+    """Clusters of C CTAs the card can keep active at once, from shared
+    memory and threads per SM alone (the card's own count, which the
+    wrapper asks cudaOccupancyMaxActiveClusters for, can be lower: a
+    cluster must fit in one GPC)."""
+    smem = panel_smem_bytes(rows, nb, itemsize)
+    if smem > SMEM_BLOCK:
+        return 0
+    threads = PANEL_THREADS["solo" if C == 1 else "cluster"]
+    per_sm = min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads)
+    return SMS * per_sm // C
+
+
+def panel_launch_config(B: int, R: int, T: int, itemsize: int,
+                        active=estimate_active_clusters):
+    """(C, nb): the cluster size (CTAs per front) and the column-slab width
+    of the panel kernel for B fronts of (R, T) at ``itemsize`` bytes;
+    ``active(C, rows, nb, itemsize)`` is the number of clusters the card
+    keeps active at once (0 where the slice does not fit).
+
+    The whole panel (nb = T) stays in the cluster's shared memory when some
+    C <= 8 gives a slice of ceil(R / C) rows that fits 227 KB. Among those
+    C the rule takes the least modelled time: waves of active clusters,
+    each of T steps whose cost is the slice's rows plus, for C > 1, the
+    cluster's cost, stretched by the CTAs that share an SM. One CTA (no
+    cluster barrier) wins on short panels and many fronts, 8 CTAs on tall
+    panels and few fronts. Taller panels take C = 8 and the widest slab (a
+    multiple of 8 columns) that fits; a panel whose 8-column slab does not
+    fit raises ValueError."""
+    if T < 1 or T > PANEL_MAX_T or R < T:
+        raise ValueError(f"panel (R={R}, T={T}) needs 1 <= T <= "
+                         f"{PANEL_MAX_T} and R >= T")
+    best = None
+    for C in range(1, PANEL_MAX_CLUSTER + 1):
+        rows = -(-R // C)
+        if panel_smem_bytes(rows, T, itemsize) > SMEM_BLOCK:
+            continue
+        act = active(C, rows, T, itemsize)
+        if act < 1:
+            continue
+        share = max(1.0, min(B, act) * C / SMS) ** PANEL_SHARE
+        step = (rows + PANEL_CLUSTER_COST if C > 1
+                else rows * PANEL_SOLO_ROWS)
+        cost = -(-B // act) * share * step
+        if best is None or cost < best[0]:
+            best = (cost, C)
+    if best is not None:
+        return best[1], T
+    C = PANEL_MAX_CLUSTER
+    rows = -(-R // C)
+    nb = 8 * (T // 8)
+    while nb >= 8 and panel_smem_bytes(rows, nb, itemsize) > SMEM_BLOCK:
+        nb -= 8
+    if nb < 8:
+        raise ValueError(f"panel (B={B}, R={R}, T={T}) at {itemsize} bytes "
+                         f"per value: {rows} rows per CTA do not fit "
+                         f"{SMEM_BLOCK} bytes of shared memory even in "
+                         f"8-column slabs")
+    return C, nb
+
+
+_ACTIVE: dict = {}
+
+
+def active_clusters(C: int, rows: int, nb: int, itemsize: int) -> int:
+    """The card's own count of active clusters (cached)."""
+    key = (C, rows, nb, itemsize)
+    if key not in _ACTIVE:
+        _ACTIVE[key] = max(0, build().nk_pivoted_panel_active_clusters(
+            C, rows, nb, itemsize))
+    return _ACTIVE[key]
+
+
 def pivoted_panel_plain(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
                         tau: float = 0.0):
     """mf_jax._pivoted_panel in PyTorch: factor the (B, R, T) panel (rows
@@ -221,7 +351,7 @@ def pivoted_panel_plain(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
                                                Pan[:, k, None, k + 1:],
                                                Pan[:, k + 1:, k + 1:])
             Pan[:, k + 1:, k] = colv
-    return Pan, piv
+    return Pan, piv, seq_to_perm(piv, R)
 
 
 def pivoted_panel(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
@@ -229,29 +359,40 @@ def pivoted_panel(Pan: torch.Tensor, off: int, p_arr: torch.Tensor,
     """Restricted-pivot panel LU: Pan (B, R, T) float64 (K1) or float32
     (K2) contiguous, p_arr (B,) int32 true eliminated counts, tau the GESP
     threshold (taken at Pan's dtype). Returns (a new factored panel, piv
-    (B, T) int32). CPU tensors take the plain version; CUDA tensors launch
-    csrc/pivoted_panel.cu."""
+    (B, T) int32, perm (B, R) int64). CPU tensors take the plain version;
+    CUDA tensors launch csrc/pivoted_panel.cu on clusters of
+    panel_launch_config's size (which raises for a panel too tall for it)."""
     if Pan.dim() != 3:
         raise ValueError(f"Pan: expected (B, R, T), got {tuple(Pan.shape)}")
     B, R, T = Pan.shape
     sfx = _float_dtype(Pan, "Pan")
     _check(Pan, "Pan", Pan.dtype, (B, R, T))
     _check(p_arr, "p_arr", torch.int32, (B,))
-    if T > 128 or R < T:
-        raise ValueError(f"panel (R={R}, T={T}) needs T <= 128 and R >= T")
+    if T > PANEL_MAX_T or R < T:
+        raise ValueError(f"panel (R={R}, T={T}) needs T <= {PANEL_MAX_T} "
+                         f"and R >= T")
     if _route(Pan, p_arr) == "cpu":
         return pivoted_panel_plain(Pan, off, p_arr, tau)
-    lib = build()
-    out = Pan.clone()
     piv = torch.empty((B, T), dtype=torch.int32, device=Pan.device)
+    if B == 0 or T == 0:
+        return Pan.clone(), piv, seq_to_perm(piv, R)
+    perm = torch.empty((B, R), dtype=torch.int64, device=Pan.device)
+    lib = build()
+    C, nb = panel_launch_config(B, R, T, Pan.element_size(),
+                                active_clusters)
+    out = torch.empty_like(Pan)
+    # column slabs keep the rows by original index in a scratch copy
+    work = Pan.clone() if nb < T else Pan
     err = getattr(lib, f"nk_pivoted_panel_{sfx}")(
-        out.data_ptr(), piv.data_ptr(), p_arr.data_ptr(), B, R, T, int(off),
-        float(tau), _stream(Pan.device))
+        work.data_ptr(), out.data_ptr(), piv.data_ptr(), perm.data_ptr(),
+        p_arr.data_ptr(), B, R, T, int(off), float(tau), C, nb,
+        _stream(Pan.device))
     if err:
-        raise RuntimeError(f"pivoted_panel_{sfx} kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"pivoted_panel_{sfx} kernel launch failed "
+                           f"(B={B}, R={R}, T={T}, cluster {C}, slab {nb}): "
+                           f"CUDA error {err}")
     LAUNCHES[f"pivoted_panel_{sfx}"] += 1
-    return out, piv
+    return out, piv, perm
 
 
 # --------------------------------------------------------------------------

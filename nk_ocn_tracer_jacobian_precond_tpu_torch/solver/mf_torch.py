@@ -8,8 +8,9 @@ dependency order; each round is a batch of padded dense fronts (B, N, N):
 2. extend-add of the children's Schur complements (``extend_add``);
 3. blocked LU of the pivot block with partial pivoting restricted to the
    fully-summed rows (``partial_factor``: the panel kernel
-   ``cuda_kernels.pivoted_panel``, K1 at f64 and K2 at f32, TRSM, trailing
-   GEMM), or the library LU for rounds of at most two fronts;
+   ``cuda_kernels.pivoted_panel``, K1 at f64 and K2 at f32, which also
+   returns the panel's row permutation; TRSM, trailing GEMM), or the
+   library LU for rounds of at most two fronts;
 4. packing of the pivot block's diagonal-block inverses for the solve.
 
 The stored factors per round are K (B, P, P) (the ``pack_diag_inv``
@@ -32,14 +33,12 @@ import time
 import numpy as np
 import torch
 
-from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import SparseMatrix
-from nk_ocn_tracer_jacobian_precond_tpu.solver.memplan import plan_memory
-from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
-    SymbolicFactorization)
-from nk_ocn_tracer_jacobian_precond_tpu.utils import dbg, timed
-
+from ..io.matrixfile import SparseMatrix
+from ..utils import dbg, timed
 from . import cuda_kernels as ck
+from .memplan import plan_memory
 from .plan import build_plan
+from .symbolic import SymbolicFactorization
 
 PANEL = 128
 # float32 engines run the substitutions of rounds with P >= this in float64
@@ -104,21 +103,6 @@ def extend_add(F, S_src, src_slots, dst_slots, inv, waves):
                                 iv[:, None, :].expand(hi - lo, N, N))
             F.index_add_(0, dst_slots[lo:hi], adds)
     return F
-
-
-def seq_to_perm(piv, R: int):
-    """Compose a pivot-swap sequence (B, T) into a row permutation (B, R)
-    int64: perm[b, i] = panel-relative source row that ends up at i."""
-    B, T = piv.shape
-    perm = torch.arange(R, device=piv.device).repeat(B, 1)
-    bidx = torch.arange(B, device=piv.device)
-    piv = piv.to(torch.int64)
-    for k in range(T):
-        sel = piv[:, k]
-        a = perm[:, k].clone()
-        perm[:, k] = perm[bidx, sel]
-        perm[bidx, sel] = a
-    return perm
 
 
 def pack_diag_inv(LU, bs: int = PANEL):
@@ -246,9 +230,9 @@ def partial_factor(F, P: int, p_arr, tau: float = 0.0,
     for off in range(0, P, PANEL):
         T = min(PANEL, P - off)
         R = P - off
-        Pan, piv = ck.pivoted_panel(F[:, off:P, off:off + T].contiguous(),
-                                    off, p_arr, tau)
-        pperm = seq_to_perm(piv, R)
+        # the kernel composes the pivot swaps into pperm (B, R) itself
+        Pan, _, pperm = ck.pivoted_panel(
+            F[:, off:P, off:off + T].contiguous(), off, p_arr, tau)
         # permute the panel rows' other columns, then put the factored
         # panel in place
         Rows = torch.gather(F[:, off:P, :], 1,

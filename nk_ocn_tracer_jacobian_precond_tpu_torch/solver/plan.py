@@ -15,9 +15,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import SparseMatrix
-from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
-    SymbolicFactorization)
+from ..io.matrixfile import SparseMatrix
+from ..native import plan_entries
+from .symbolic import SymbolicFactorization
 
 LANE = 128
 
@@ -155,7 +155,6 @@ def build_plan(sym: SymbolicFactorization, matrix: SparseMatrix,
     # --- route every CSR entry to its assembly front, grouped per front.
     # Native path: one fused C routing + counting sort (plan_entries);
     # fallback: the same grouping via numpy argsort.
-    from nk_ocn_tracer_jacobian_precond_tpu.native import plan_entries
     pe = plan_entries(csr_rowptr, csr_colind, cell_node, cell_elim,
                       len(sym.fronts))
     if pe is not None:

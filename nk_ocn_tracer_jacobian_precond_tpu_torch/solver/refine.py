@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nk_ocn_tracer_jacobian_precond_tpu.utils import dbg, timed
+from ..utils import dbg, timed
 
 # FGMRES inner depth: the first cycles use M_START vectors, doubled up to
 # M_MAX when a cycle gains under ~1.5 digits; a fused dispatch runs up to

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-These tests need a CUDA device and skip without one. The file imports no
-jax (the machine with the card has none), so it runs there on its own:
+These tests need a CUDA device and skip without one. The file imports
+neither jax nor the JAX package (the machine with the card has no jax), so
+it runs there on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -10,19 +11,20 @@ import numpy as np
 import pytest
 import torch
 
-from nk_ocn_tracer_jacobian_precond_tpu.drivers.gen_a import run_gen_a
-from nk_ocn_tracer_jacobian_precond_tpu.grid.indmap import load_ind_maps
-from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import read_matrix_file
-from nk_ocn_tracer_jacobian_precond_tpu.ops import (AssemblyOptions,
-                                                     PerTracerOptions)
-from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
-    symbolic_from_matrix)
-from nk_ocn_tracer_jacobian_precond_tpu.testdata import make_circ_file
+from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.gen_a import run_gen_a
+from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
+from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+    read_matrix_file)
+from nk_ocn_tracer_jacobian_precond_tpu_torch.ops import (AssemblyOptions,
+                                                           PerTracerOptions)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import cuda_kernels as ck
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf_torch
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
     MultifrontalFactorization)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.plan import build_plan
+from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.symbolic import (
+    symbolic_from_matrix)
+from nk_ocn_tracer_jacobian_precond_tpu_torch.testdata import make_circ_file
 
 
 @pytest.fixture
@@ -45,43 +47,57 @@ def problem(tmp_path_factory):
     return read_matrix_file(mat), load_ind_maps(mat)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,R,T,off", [(4, 256, 128, 128), (3, 128, 128, 0),
-                                       (2, 512, 64, 0), (16, 640, 128, 0),
-                                       (5, 40, 40, 0)])
-def test_panel_kernel_matches_plain(card, B, R, T, off):
+# panel shapes (B, R, T, off): tests/test_pallas_kernels.py's, a few-front
+# multi-CTA cluster (16, 640), the 256-front gx3 shape, a ragged one, and
+# tall panels that walk column slabs (R = 4096 and 8192)
+PANEL_SHAPES = [(4, 256, 128, 128), (3, 128, 128, 0), (2, 512, 64, 0),
+                (16, 640, 128, 0), (256, 512, 128, 0), (5, 40, 40, 0),
+                (3, 4096, 128, 0), (4, 8192, 128, 0)]
+
+
+def _panel_matches_plain(card, B, R, T, off, dtype):
     rng = np.random.default_rng(0)
-    Pan = torch.from_numpy(rng.standard_normal((B, R, T))).to(card)
+    Pan = torch.from_numpy(rng.standard_normal((B, R, T))).to(card, dtype)
     p_arr = torch.from_numpy(
         np.linspace(0, off + R, B).astype(np.int32)).to(card)
+    key = f"pivoted_panel_{ck.SUFFIX[dtype]}"
     for tau in (0.0, 0.05):
-        before = ck.LAUNCHES["pivoted_panel_f64"]
-        Pk, pk = ck.pivoted_panel(Pan, off, p_arr, tau)
-        Pp, pp = ck.pivoted_panel_plain(Pan, off, p_arr, tau)
+        before = ck.LAUNCHES[key]
+        Pk, pk, permk = ck.pivoted_panel(Pan, off, p_arr, tau)
+        Pp, pp, permp = ck.pivoted_panel_plain(Pan, off, p_arr, tau)
         torch.cuda.synchronize()
-        assert ck.LAUNCHES["pivoted_panel_f64"] == before + 1
-        assert torch.equal(pk, pp) and torch.equal(Pk, Pp)
+        assert ck.LAUNCHES[key] == before + 1
+        assert Pk.dtype == dtype and permk.dtype == torch.int64
+        assert torch.equal(pk, pp) and torch.equal(permk, permp)
+        assert torch.equal(Pk, Pp)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R,T,off", [(4, 256, 128, 128), (3, 128, 128, 0),
-                                       (2, 512, 64, 0), (16, 640, 128, 0),
-                                       (5, 40, 40, 0)])
+@pytest.mark.parametrize("B,R,T,off", PANEL_SHAPES)
+def test_panel_kernel_matches_plain(card, B, R, T, off):
+    """K1 bit for bit against its plain version: values, piv and perm."""
+    _panel_matches_plain(card, B, R, T, off, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,T,off", PANEL_SHAPES)
 def test_panel_kernel_matches_plain_f32(card, B, R, T, off):
     """K2, the f32 instance, bit for bit against its plain version."""
-    rng = np.random.default_rng(0)
-    Pan = torch.from_numpy(
-        rng.standard_normal((B, R, T)).astype(np.float32)).to(card)
-    p_arr = torch.from_numpy(
-        np.linspace(0, off + R, B).astype(np.int32)).to(card)
-    for tau in (0.0, 0.05):
-        before = ck.LAUNCHES["pivoted_panel_f32"]
-        Pk, pk = ck.pivoted_panel(Pan, off, p_arr, tau)
-        Pp, pp = ck.pivoted_panel_plain(Pan, off, p_arr, tau)
-        torch.cuda.synchronize()
-        assert ck.LAUNCHES["pivoted_panel_f32"] == before + 1
-        assert Pk.dtype == torch.float32
-        assert torch.equal(pk, pp) and torch.equal(Pk, Pp)
+    _panel_matches_plain(card, B, R, T, off, torch.float32)
+
+
+@pytest.mark.cuda
+def test_panel_smem_rule_matches_kernel(card):
+    """cuda_kernels.panel_smem_bytes mirrors the kernel's own count, and
+    the card keeps clusters of every size the rule may pick active."""
+    lib = ck.build()
+    for rows, nb, isz in ((103, 128, 8), (1024, 24, 8), (64, 128, 4),
+                          (5, 40, 4)):
+        assert (lib.nk_pivoted_panel_smem(rows, nb, isz)
+                == ck.panel_smem_bytes(rows, nb, isz))
+    for C in range(1, ck.PANEL_MAX_CLUSTER + 1):
+        assert ck.active_clusters(C, -(-128 // C), 128, 8) > 0
+    assert ck.active_clusters(1, 512, 128, 8) == 0
 
 
 def _ell_kernel_matches_plain(card, problem, monkeypatch, dtype):

@@ -60,7 +60,7 @@ def test_panel_plain_matches_xla_f64(B, R, T, off, tau):
     p_arr = np.linspace(0, off + R, B).astype(np.int32)
     Px, piv_x = mf_jax._pivoted_panel(jnp.asarray(Pan), off,
                                       jnp.asarray(p_arr), tau)
-    Pt, piv_t = ck.pivoted_panel(T_(Pan), off, T_(p_arr), tau)
+    Pt, piv_t, _ = ck.pivoted_panel(T_(Pan), off, T_(p_arr), tau)
     assert np.array_equal(piv_t.numpy(), np.asarray(piv_x))
     np.testing.assert_allclose(Pt.numpy(), np.asarray(Px), rtol=0,
                                atol=1e-13)
@@ -81,7 +81,7 @@ def test_panel_plain_matches_df64_kernel():
         jnp.asarray(hi), jnp.asarray(lo), 0, jnp.asarray(p_arr),
         tau=1e-8, interpret=True)
     Pd = np.asarray(oh, np.float64) + np.asarray(ol, np.float64)
-    Pt, piv_t = ck.pivoted_panel(T_(A0), 0, T_(p_arr), 1e-8)
+    Pt, piv_t, _ = ck.pivoted_panel(T_(A0), 0, T_(p_arr), 1e-8)
     assert np.array_equal(piv_t.numpy(), np.asarray(piv_d))
     np.testing.assert_allclose(Pt.numpy(), Pd, rtol=0, atol=1e-11)
 
@@ -93,7 +93,7 @@ def test_panel_plain_factors_correctly(B, R, T, off):
     rng = np.random.default_rng(3)
     A0 = rng.standard_normal((B, R, T))
     p_arr = np.full(B, off + R, dtype=np.int32)
-    Pt, piv = ck.pivoted_panel(T_(A0), off, T_(p_arr), 0.0)
+    Pt, piv, _ = ck.pivoted_panel(T_(A0), off, T_(p_arr), 0.0)
     Pp, piv = Pt.numpy(), piv.numpy()
     for b in range(B):
         A = A0[b].copy()
@@ -103,6 +103,112 @@ def test_panel_plain_factors_correctly(B, R, T, off):
         L = np.vstack([np.tril(Pp[b][:T], -1) + np.eye(T), Pp[b][T:]])
         U = np.triu(Pp[b][:T])
         np.testing.assert_allclose(L @ U, A, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("B,R,T,off", PANEL_CASES)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_panel_plain_perm_matches_jax_seq_to_perm(B, R, T, off, dtype):
+    """The panel's third output, perm, is mf_jax._seq_to_perm of its piv
+    (the composition the engine used to build on the host side)."""
+    rng = np.random.default_rng(0)
+    Pan = rng.standard_normal((B, R, T)).astype(dtype)
+    p_arr = np.linspace(0, off + R, B).astype(np.int32)
+    _, piv, perm = ck.pivoted_panel(T_(Pan), off, T_(p_arr), 0.05)
+    want = np.asarray(mf_jax._seq_to_perm(jnp.asarray(piv.numpy()), R))
+    assert perm.dtype == torch.int64 and perm.shape == (B, R)
+    assert np.array_equal(perm.numpy(), want)
+    assert np.array_equal(ck.seq_to_perm(piv, R).numpy(), want)
+    # perm moves the input's rows where the factored panel has them
+    assert not np.array_equal(perm.numpy(), np.tile(np.arange(R), (B, 1)))
+
+
+def test_engine_takes_the_kernels_perm():
+    """partial_factor no longer composes the swaps itself."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf_torch
+    assert not hasattr(mf_torch, "seq_to_perm")
+
+
+# every (B, R) of the gx3 plan's kernel rounds (T = 128): rounds (B, P)
+# (256, 512), (128, 256), (256, 128), (128, 256), (64, 512), (32, 512),
+# (16, 640), (8, 512), (4, 768), one panel per 128 columns
+GX3_ROUNDS = [(256, 512), (128, 256), (256, 128), (64, 512), (32, 512),
+              (16, 640), (8, 512), (4, 768)]
+GX3_PANELS = sorted({(B, P - off) for B, P in GX3_ROUNDS
+                     for off in range(0, P, 128)})
+
+
+def _valid_config(B, R, T, itemsize):
+    C, nb = ck.panel_launch_config(B, R, T, itemsize)
+    rows = -(-R // C)
+    assert 1 <= C <= ck.PANEL_MAX_CLUSTER and 1 <= nb <= T
+    assert ck.panel_smem_bytes(rows, nb, itemsize) <= ck.SMEM_BLOCK
+    return C, nb
+
+
+@pytest.mark.parametrize("B,R", GX3_PANELS)
+@pytest.mark.parametrize("itemsize", [8, 4])
+def test_panel_launch_config_gx3(B, R, itemsize):
+    """Every gx3 panel stays whole in its cluster's shared memory; few
+    fronts of tall panels spread over the largest cluster, many fronts of
+    short panels take one CTA each (no cluster barrier)."""
+    C, nb = _valid_config(B, R, 128, itemsize)
+    assert nb == 128
+    if B <= 8 and R >= 256:
+        assert C == ck.PANEL_MAX_CLUSTER
+    if R == 128 and B >= 64:
+        assert C == 1
+
+
+# clusters an H100 80GB HBM3 keeps active at once for the (256, 512, 128)
+# f64 panel, C = 1..8 (cudaOccupancyMaxActiveClusters; 0: does not fit)
+H100_ACTIVE_F64_R512 = [0, 0, 39, 30, 47, 39, 32, 45]
+
+
+def test_panel_launch_config_largest_gx3_shape():
+    """(256, 512, 128) at f64: 512 rows do not fit one or two CTAs; with
+    the card's own active-cluster counts the rule takes 8 CTAs, the
+    fastest size in scripts/panel_sweep.py's run on the card."""
+    act = (lambda C, rows, nb, itemsize: H100_ACTIVE_F64_R512[C - 1])
+    assert ck.panel_launch_config(256, 512, 128, 8, act) == (8, 128)
+    assert ck.panel_smem_bytes(64, 128, 8) <= ck.SMEM_BLOCK
+    assert ck.estimate_active_clusters(1, 512, 128, 8) == 0
+
+
+def test_panel_launch_config_follows_active_clusters():
+    """A cluster size the card cannot keep active is never taken, and with
+    clusters scarce one CTA per front wins where it fits."""
+    only_one = (lambda C, rows, nb, itemsize: 132 if C == 1 else 0)
+    assert ck.panel_launch_config(4, 256, 128, 4, only_one) == (1, 128)
+    no_one = (lambda C, rows, nb, itemsize:
+              0 if C == 1 else ck.estimate_active_clusters(C, rows, nb,
+                                                           itemsize))
+    assert ck.panel_launch_config(256, 128, 128, 4, no_one)[0] > 1
+
+
+@pytest.mark.parametrize("R", [1664, 2048, 4096, 8192])
+@pytest.mark.parametrize("itemsize", [8, 4])
+def test_panel_launch_config_tall(R, itemsize):
+    """Tall panels walk column slabs on the largest cluster; the slab is
+    the widest multiple of 8 that fits."""
+    C, nb = _valid_config(4, R, 128, itemsize)
+    rows = -(-R // C)
+    if ck.panel_smem_bytes(rows, 128, itemsize) <= ck.SMEM_BLOCK:
+        assert nb == 128
+    else:
+        assert C == ck.PANEL_MAX_CLUSTER and nb % 8 == 0 and nb < 128
+        assert ck.panel_smem_bytes(rows, nb + 8, itemsize) > ck.SMEM_BLOCK
+    if R >= 4096:
+        assert nb < 128
+    if (R, itemsize) == (8192, 8):
+        assert (C, nb) == (8, 24)
+
+
+def test_panel_launch_config_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="do not fit"):
+        ck.panel_launch_config(2, 40000, 128, 8)
+    with pytest.raises(ValueError, match="T <= 128"):
+        ck.panel_launch_config(2, 256, 256, 8)
+    assert ck.panel_launch_config(1, 8, 8, 8) == (1, 8)
 
 
 def test_fma_plain_rounds_once():
@@ -139,7 +245,7 @@ def test_panel_plain_matches_xla_f32(B, R, T, off, tau):
                                       jnp.asarray(p_arr), tau)
     Pp, piv_p = pallas_pivoted_panel(jnp.asarray(Pan), off,
                                      jnp.asarray(p_arr), tau, interpret=True)
-    Pt, piv_t = ck.pivoted_panel(T_(Pan), off, T_(p_arr), tau)
+    Pt, piv_t, _ = ck.pivoted_panel(T_(Pan), off, T_(p_arr), tau)
     assert Pt.dtype == torch.float32
     for Pw, piv_w in ((Px, piv_x), (Pp, piv_p)):
         assert np.array_equal(piv_t.numpy(), np.asarray(piv_w))
@@ -159,7 +265,7 @@ def test_xla_update_is_fused_f32():
     mp = pytest.MonkeyPatch()
     mp.setattr(ck, "fma_plain", lambda a, b, c: a * b + c)
     try:
-        Pu, _ = ck.pivoted_panel_plain(T_(Pan), off, T_(p_arr), 0.0)
+        Pu, _, _ = ck.pivoted_panel_plain(T_(Pan), off, T_(p_arr), 0.0)
     finally:
         mp.undo()
     assert not np.array_equal(Pu.numpy(), np.asarray(Px))
@@ -175,7 +281,7 @@ def test_panel_plain_factors_correctly_f32(B, R, T, off):
     rng = np.random.default_rng(3)
     A0 = rng.standard_normal((B, R, T)).astype(np.float32)
     p_arr = np.full(B, off + R, dtype=np.int32)
-    Pt, piv = ck.pivoted_panel(T_(A0), off, T_(p_arr), 0.0)
+    Pt, piv, _ = ck.pivoted_panel(T_(A0), off, T_(p_arr), 0.0)
     Pp, piv = Pt.numpy().astype(np.float64), piv.numpy()
     for b in range(B):
         A = A0[b].astype(np.float64)

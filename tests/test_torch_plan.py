@@ -2,8 +2,10 @@
 
 ``nk_ocn_tracer_jacobian_precond_tpu_torch.solver.plan`` copies
 ``mf_jax.build_plan`` and its helpers (mf_jax imports jax, so the port
-cannot import them). Every round, field and child group must be equal,
-or the two engines factor different fronts.
+cannot import them). Each package builds its plan from its own symbolic
+analysis of the matrix its own reader loads (the port's ``symbolic`` and
+``matrixfile`` are copies too). Every round, field and child group must
+be equal, or the two engines factor different fronts.
 """
 
 import numpy as np
@@ -18,7 +20,9 @@ from nk_ocn_tracer_jacobian_precond_tpu.solver import mf_jax
 from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
     symbolic_from_matrix)
 from nk_ocn_tracer_jacobian_precond_tpu.testdata import make_circ_file
-from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import plan
+from nk_ocn_tracer_jacobian_precond_tpu_torch.grid import indmap
+from nk_ocn_tracer_jacobian_precond_tpu_torch.io import matrixfile
+from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import plan, symbolic
 
 # (imt, jmt, km, seed, extra assembly options): the 20x16x6 fixture of
 # tests/test_mf_jax.py and the bench "tiny" problem (seed 7)
@@ -38,7 +42,11 @@ def _problem(d, name):
                                         vmix_type="file", per_tracer=[pt],
                                         **extra))
     matrix, maps = read_matrix_file(mat), load_ind_maps(mat)
-    return matrix, symbolic_from_matrix(maps, matrix, leaf_size=32)
+    p_matrix = matrixfile.read_matrix_file(mat)
+    p_maps = indmap.load_ind_maps(mat)
+    return (matrix, symbolic_from_matrix(maps, matrix, leaf_size=32),
+            p_matrix, symbolic.symbolic_from_matrix(p_maps, p_matrix,
+                                                    leaf_size=32))
 
 
 @pytest.fixture(scope="module")
@@ -67,28 +75,28 @@ def _assert_plans_equal(got, want):
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))
 def test_build_plan_matches_jax(problems, name):
-    matrix, sym = problems[name]
-    _assert_plans_equal(plan.build_plan(sym, matrix, batch_multiple=1),
+    matrix, sym, p_matrix, p_sym = problems[name]
+    _assert_plans_equal(plan.build_plan(p_sym, p_matrix, batch_multiple=1),
                         mf_jax.build_plan(sym, matrix, batch_multiple=1))
 
 
 def test_build_plan_matches_jax_with_spill(problems, monkeypatch):
     """Cap the ELL width estimate at 4 so rows spill, as
     tests/test_mf_jax.py::test_ell_spill_assembly_path does."""
-    matrix, sym = problems["fixture"]
+    matrix, sym, p_matrix, p_sym = problems["fixture"]
     real_quantile = np.quantile
     monkeypatch.setattr(np, "quantile",
                         lambda a, q, **kw: min(real_quantile(a, q, **kw), 4.0))
-    got = plan.build_plan(sym, matrix, batch_multiple=1)
+    got = plan.build_plan(p_sym, p_matrix, batch_multiple=1)
     assert any((p.a_pos < p.N * p.N).any() for p in got)
     _assert_plans_equal(got, mf_jax.build_plan(sym, matrix, batch_multiple=1))
 
 
 def test_build_plan_matches_jax_small_budget(problems):
     """A small memory budget splits rounds into several chunks."""
-    matrix, sym = problems["tiny"]
-    got = plan.build_plan(sym, matrix, mem_budget_bytes=2e6)
-    assert len(got) > len(plan.build_plan(sym, matrix))
+    matrix, sym, p_matrix, p_sym = problems["tiny"]
+    got = plan.build_plan(p_sym, p_matrix, mem_budget_bytes=2e6)
+    assert len(got) > len(plan.build_plan(p_sym, p_matrix))
     _assert_plans_equal(got, mf_jax.build_plan(sym, matrix,
                                                mem_budget_bytes=2e6))
 
