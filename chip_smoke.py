@@ -32,7 +32,19 @@ its hand-written CUDA kernels on the way:
    on the refactor), the refiner's phases and cycles, times, peak memory;
    every residual <= 1e-10 either way. When it escalated, the f32 factors
    are then built alone to time their steady refactor and read their own
-   peak memory.
+   peak memory;
+7. gx3 out of core at f64, on the phase-5 problem: (f) three unrefined
+   4-RHS solves on gx3 f32 factors, bit for bit alike (the border
+   subtraction adds in waves of distinct destinations); (a) the CLI's
+   --memplan; (b) the CLI twice with --factors FILE on fresh tracer copies,
+   the first factoring and writing FILE, the second loading it with no K1
+   or K3 launch; (c) a factor-only pass with stop_after at a mid-tree
+   round into a fresh checkpoint directory, then a factor-only resume that
+   launches K3 once per remaining round, with each pass's peak memory and
+   each round's peak held against memplan.engine_round_peaks;
+   (d) stream_solve from that directory on the four tracers; (e) an
+   offloading engine on the directory against a resident one, factors
+   equal. Every residual <= 1e-10.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel results, and as its last line
@@ -503,7 +515,15 @@ def steady(fac, A, Bm) -> dict:
     rel = np.linalg.norm(A @ X - Bm, axis=0) / np.linalg.norm(Bm, axis=0)
     if not rel.max() <= 1e-10:
         raise AssertionError(f"steady solve residual {rel.max():.3e}")
+    # one solve's wall time varies by tens of ms between calls: the
+    # median of this and four more
+    times = [t_solve]
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fac.solve(Bm)
+        times.append(time.perf_counter() - t0)
     return dict(steady_factor_s=t_steady, solve_4rhs_s=t_solve,
+                solve_4rhs_median_s=float(np.median(times)),
                 steady_max_residual=float(rel.max()),
                 steady_refiner=dict(fac._refiner.stats))
 
@@ -610,8 +630,8 @@ def device_busy(fac, device) -> dict:
 def phase_main(ck, device, mat: str, tracer: str, precision: str,
                phase: int) -> dict:
     """drivers.solve.run_solve over the four tracers at ``precision``,
-    from a copy of the original tracer file; the launch counts of the run
-    are returned."""
+    from a copy of the original tracer file; returns the launch counts of
+    the run and the phase's numbers."""
     import torch
     from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.solve import (
         run_solve)
@@ -662,7 +682,7 @@ def phase_main(ck, device, mat: str, tracer: str, precision: str,
     if precision == "f32" and escalated:
         stats.update(f32_alone(fac, device))
     say(f"phase {phase} main path gx3 {precision}: " + json.dumps(stats))
-    return launches
+    return launches, stats
 
 
 def f32_alone(fac, device) -> dict:
@@ -689,6 +709,262 @@ def f32_alone(fac, device) -> dict:
                 f32_alone_steady_factor_s=t_steady,
                 f32_alone_peak_mem_gb=torch.cuda.max_memory_allocated(
                     device) / 1e9)
+
+
+# --------------------------------------------------------------------------
+# phase 7: gx3 out of core at f64
+# --------------------------------------------------------------------------
+
+def run_cli(argv) -> tuple:
+    """drivers.solve.main(argv) with its output captured: (rc, stdout,
+    stderr, seconds). Raises on a non-zero exit."""
+    import contextlib
+    import io
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import solve
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.utils import set_dbg_lvl
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = solve.main(argv)
+    finally:
+        set_dbg_lvl(0)      # -D sets the process's level; keep it quiet
+    t = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"solve {' '.join(argv)}: rc {rc}\n"
+                             f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), t
+
+
+def timed_line(log: str, name: str) -> float:
+    """The seconds of utils.timed's "(0) name: X s" line in ``log``."""
+    for line in log.splitlines():
+        if line.startswith(f"(0) {name}: ") and line.endswith("s"):
+            return float(line.rsplit(" ", 1)[1][:-1])
+    raise AssertionError(f"no '{name}' timing in the log")
+
+
+def solutions(mat: str, tracer_file: str) -> np.ndarray:
+    """The four tracers of a solved file, flattened, as columns."""
+    from scipy.io import netcdf_file
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
+    maps = load_ind_maps(mat)
+    with netcdf_file(tracer_file, "r", mmap=False) as f:
+        return np.stack([maps.flatten_field(np.array(
+            f.variables[v].data, dtype=np.float64)) for v in TRACERS], 1)
+
+
+def reset_counts(ck, device) -> None:
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    for k in ck.LAUNCHES:
+        ck.LAUNCHES[k] = 0
+
+
+def phase_oocore(ck, device, work: Path, mat: str, tracer: str, sym,
+                 plans, resident_peak_gb: float) -> dict:
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import stream_solve
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.checkpoint import (
+        FactorRoundCheckpointer)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        engine_round_peaks)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import equilibrate
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf_torch import (
+        TorchMultifrontal, pack_block_size)
+    d = work / "oocore"
+    d.mkdir()
+    gb = 1e9
+    disk = shutil.disk_usage(d)
+    stats = dict(disk_free_gb=disk.free / gb,
+                 resident_at_start_gb=torch.cuda.memory_allocated(device) / gb)
+    matrix = read_matrix_file(mat)
+    fac_matrix, _, _ = equilibrate(matrix)
+    Bm = solutions(mat, tracer)
+    n = len(plans)
+    asm, pan = "ell_assemble_f64", "pivoted_panel_f64"
+
+    # (f) the border repair on the card: f32 factors, unrefined solves
+    eng = TorchMultifrontal(sym, fac_matrix, device, prec=torch.float32)
+    stats["border_waves_per_round"] = [len(c["border"][2])
+                                       for c in eng._consts]
+    xs = [eng.solve(Bm) for _ in range(3)]
+    if not all(np.array_equal(xs[0], x) for x in xs[1:]):
+        spread = max(float(np.abs(x - xs[0]).max()) for x in xs[1:])
+        raise AssertionError(f"f32 unrefined solves differ by {spread:.3e}")
+    t0 = time.perf_counter()
+    eng.solve(Bm)
+    stats["f32_unrefined_4rhs_solve_s"] = time.perf_counter() - t0
+    del eng, xs
+    say(f"phase 7f border repair: 3 unrefined f32 4-RHS solves bitwise "
+        f"equal; waves per round {stats['border_waves_per_round']}")
+
+    # (a) --memplan
+    out, _, t = run_cli(["--memplan", "-n", "1", "--prec", "f64", mat])
+    if "float64 factors" not in out:
+        raise AssertionError(f"--memplan printed {out!r}")
+    stats["memplan_s"] = t
+    say("phase 7a --memplan -n 1 --prec f64:\n  "
+        + "\n  ".join(out.strip().splitlines()))
+
+    # (b) --factors, twice on fresh tracer copies
+    f = d / "factors.npz"
+    X = []
+    for run in ("save", "load"):
+        out_file = str(d / f"tracer_{run}.nc")
+        shutil.copy(tracer, out_file)
+        reset_counts(ck, device)
+        out, err, t = run_cli(["-D", "1", "--device", "cuda", "--prec", "f64",
+                               "--factors", str(f), "-v", ",".join(TRACERS),
+                               mat, out_file])
+        launches = dict(ck.LAUNCHES)
+        if run == "save":
+            expect_launches(launches, plans, ("f64",))
+            if f"numeric factors saved to {f}" not in out:
+                raise AssertionError("--factors: the first run saved nothing")
+        elif (launches[asm] or launches[pan]
+              or f"numeric factors loaded from {f}" not in out):
+            raise AssertionError(f"--factors: the second run factored "
+                                 f"({launches}) or did not load")
+        res, _, _ = check_tracers(mat, tracer, out_file)
+        X.append(solutions(mat, out_file))
+        stats[f"factors_{run}"] = dict(
+            run_s=t, factor_phase_s=timed_line(err, "factor"),
+            solve_phase_s=timed_line(err, "solve"),
+            max_residual=max(res.values()),
+            peak_mem_gb=torch.cuda.max_memory_allocated(device) / gb)
+    stats["factors_file_gb"] = f.stat().st_size / gb
+    rel = float(np.abs(X[1] - X[0]).max() / np.abs(X[0]).max())
+    if not rel <= 1e-12:
+        raise AssertionError(f"--factors: the loaded run's solutions differ "
+                             f"by {rel:.3e} relative")
+    stats["factors_runs_rel_diff"] = rel
+    f.unlink()
+    say(f"phase 7b --factors: cold factor phase "
+        f"{stats['factors_save']['factor_phase_s']:.2f} s, loaded "
+        f"{stats['factors_load']['factor_phase_s']:.2f} s, file "
+        f"{stats['factors_file_gb']:.2f} GB, solutions {rel:.2e} apart")
+
+    # (c) factor-only with a handoff at a mid-tree round, then a resume;
+    # each round's peak (since the previous round's save) is held against
+    # the engine's memory plan
+    ck_dir = str(d / "rounds")
+    k = n // 2 - 1
+    passes = {}
+    plan_peaks = engine_round_peaks(plans, 8, fac_matrix.nnz,
+                                    pack_block_size(plans))
+    round_peaks = {}
+    real_save = FactorRoundCheckpointer.save_round
+
+    def peak_save(self, rnd, *a, **kw):
+        round_peaks[rnd] = torch.cuda.max_memory_allocated(device) - base
+        torch.cuda.reset_peak_memory_stats(device)
+        real_save(self, rnd, *a, **kw)
+    for name, kw in (("stop_after", dict(stop_after=k)), ("resume", {})):
+        reset_counts(ck, device)
+        base = torch.cuda.memory_allocated(device)
+        FactorRoundCheckpointer.save_round = peak_save
+        t0 = time.perf_counter()
+        try:
+            eng = TorchMultifrontal(sym, fac_matrix, device,
+                                    checkpoint_dir=ck_dir, factor_only=True,
+                                    **kw)
+        finally:
+            FactorRoundCheckpointer.save_round = real_save
+        t = time.perf_counter() - t0
+        if eng.factors is not None:
+            raise AssertionError("factor-only: the engine kept factors")
+        rounds = range(k + 1) if name == "stop_after" else range(k + 1, n)
+        want = {asm: len(rounds),
+                pan: sum(math.ceil(plans[r].P / 128) for r in rounds
+                         if plans[r].B > 2)}
+        got = {key: ck.LAUNCHES[key] for key in want}
+        if got != want:
+            raise AssertionError(f"factor-only {name}: launches {got}, "
+                                 f"want {want}")
+        pack_bs = eng._pack_bs
+        # the pass's peak: its rounds' windows and the one after its last
+        # save
+        peak = max([torch.cuda.max_memory_allocated(device) - base]
+                   + [round_peaks[r] for r in rounds])
+        passes[name] = dict(s=t, factor_s=eng.timings["factor"],
+                            rounds=len(rounds), launches=got,
+                            peak_mem_gb=(base + peak) / gb)
+        del eng
+    files = sorted(Path(ck_dir).iterdir())
+    if [p.name for p in files] != [f"round_{r:04d}.npz" for r in range(n)]:
+        raise AssertionError(f"factor-only: directory holds "
+                             f"{[p.name for p in files]}")
+    over = {r: p / plan_peaks[r] for r, p in sorted(round_peaks.items())}
+    if sorted(over) != list(range(n)) or max(over.values()) > 1.0:
+        raise AssertionError(f"factor-only: round peaks over the memory "
+                             f"plan's {over}")
+    stats["factor_only"] = passes
+    stats["round_peak_gb"] = [round_peaks[r] / gb for r in range(n)]
+    stats["round_peak_planned_gb"] = [p / gb for p in plan_peaks]
+    stats["round_files_gb"] = sum(p.stat().st_size for p in files) / gb
+    say(f"phase 7c factor-only: stop after round {k} then resume "
+        f"{passes['resume']['rounds']} rounds (K3 once each); peaks "
+        f"{passes['stop_after']['peak_mem_gb']:.2f} / "
+        f"{passes['resume']['peak_mem_gb']:.2f} GB against phase 5's "
+        f"resident {resident_peak_gb:.2f} GB; per round measured / "
+        f"planned {[round(x, 3) for x in over.values()]}; "
+        f"{stats['round_files_gb']:.2f} GB of round files")
+
+    # (d) the out-of-core stream solve over the round files
+    times = []
+    real = stream_solve.StreamSolver.apply
+
+    def counted(self, b):
+        t0 = time.perf_counter()
+        out = real(self, b)
+        times.append(time.perf_counter() - t0)
+        return out
+    stream_solve.StreamSolver.apply = counted
+    try:
+        t0 = time.perf_counter()
+        Xs, rel = stream_solve.stream_solve(matrix, load_ind_maps(mat), sym,
+                                            ck_dir, Bm, pack_bs=pack_bs)
+        t = time.perf_counter() - t0
+    finally:
+        stream_solve.StreamSolver.apply = real
+    A = matrix.to_scipy()
+    res = np.linalg.norm(A @ Xs - Bm, axis=0) / np.linalg.norm(Bm, axis=0)
+    if not (rel.max() <= 1e-10 and res.max() <= 1e-10
+            and np.all(np.isfinite(Xs))):
+        raise AssertionError(f"stream solve residuals {res}")
+    stats["stream_solve"] = dict(s=t, applies=len(times),
+                                 s_per_apply=float(np.mean(times)),
+                                 max_residual=float(res.max()))
+    say(f"phase 7d stream solve: {len(times)} applies, "
+        f"{np.mean(times):.2f} s each, {t:.2f} s, residuals "
+        f"{[f'{r:.2e}' for r in res]}")
+
+    # (e) an offloading engine on the directory against a resident one
+    reset_counts(ck, device)
+    off = TorchMultifrontal(sym, fac_matrix, device, checkpoint_dir=ck_dir)
+    if not off._offload or ck.LAUNCHES[asm] or ck.LAUNCHES[pan]:
+        raise AssertionError(f"offload: factored instead of loading "
+                             f"({dict(ck.LAUNCHES)})")
+    peak_off = torch.cuda.max_memory_allocated(device) / gb
+    res_eng = TorchMultifrontal(sym, fac_matrix, device)
+    for rnd, (a, b) in enumerate(zip(off.factors, res_eng.factors)):
+        if not all(bool(torch.equal(x, y)) for x, y in zip(a, b)):
+            raise AssertionError(f"offload: round {rnd} differs from the "
+                                 f"resident factors")
+    stats["offload"] = dict(load_s=off.timings["factor"],
+                            resident_factor_s=res_eng.timings["factor"],
+                            peak_mem_gb=peak_off)
+    del off, res_eng
+    say(f"phase 7e offload: factors equal the resident engine's; load "
+        f"{stats['offload']['load_s']:.2f} s against a factor of "
+        f"{stats['offload']['resident_factor_s']:.2f} s")
+    say("phase 7 gx3 out of core f64: " + json.dumps(stats))
+    return stats
 
 
 def main() -> int:
@@ -751,7 +1027,7 @@ def main() -> int:
         panel = {sfx: phase_panel(ck, device, plans, sfx) for sfx in DTYPES}
         asm = {sfx: phase_assemble(ck, device, plans, matrix.nzval, sfx)
                for sfx in DTYPES}
-        del plans, sym, matrix
+        del matrix
 
         # phase 4: engine parity
         for precision in DTYPES:
@@ -759,8 +1035,14 @@ def main() -> int:
 
         # phases 5 and 6: main path at f64 factors, then at f32 factors;
         # each kernel reports the launches of the path of its dtype
-        launches = {"f64": phase_main(ck, device, mat, tracer, "f64", 5),
-                    "f32": phase_main(ck, device, mat, tracer, "f32", 6)}
+        launches, main_stats = {}, {}
+        for sfx, phase in (("f64", 5), ("f32", 6)):
+            launches[sfx], main_stats[sfx] = phase_main(ck, device, mat,
+                                                        tracer, sfx, phase)
+
+        # phase 7: out of core at f64 on the phase-5 problem
+        phase_oocore(ck, device, work, mat, tracer, sym, plans,
+                     main_stats["f64"]["peak_mem_gb"])
 
     kernels = []
     for sfx in DTYPES:

@@ -6,13 +6,19 @@ variable group read the tracer field(s) from the inout file, flatten them
 through the index maps, solve, scatter back preserving land values and
 write in place. ``--prec`` picks the factor precision (f64, the default;
 f32; or auto, f32 on the card), the explicit form of the JAX package's
-NK_PREC. The distributed options (``-n`` above 1,
-``--rhs-devices``), factor files (``--factors``) and ``--memplan`` are not
-yet ported: they exit with status 1.
+NK_PREC. ``--factors FILE`` loads the numeric factors from FILE when it
+matches the matrix (no numeric factorization) and writes them there
+otherwise. ``--memplan`` prints the memory plan of the factorization for
+``-n N`` devices at the ``--prec`` dtype and exits, on the host alone:
+the JAX driver's lines, whose transient model counts fused programs; the
+port's eager temporaries are counted per round by
+``memplan.engine_round_peaks``. The
+distributed options (``-n`` above 1 without ``--memplan``,
+``--rhs-devices``) are not yet ported: they exit with status 1.
 
 Run as ``python -m nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.solve
-[-D lvl] [--device cuda|cpu] [--prec f64|f32|auto] -v VARS matrix.nc
-tracer.nc``.
+[-D lvl] [--device cuda|cpu] [--prec f64|f32|auto] [--factors FILE]
+-v VARS matrix.nc tracer.nc``, or with ``--memplan [-n N] matrix.nc``.
 """
 
 from __future__ import annotations
@@ -23,10 +29,14 @@ import sys
 import numpy as np
 import torch
 
+from ..device import resolve_precision
 from ..grid.indmap import load_ind_maps
 from ..io import fields, netcdf3
 from ..io.matrixfile import read_matrix_file
 from ..solver.api import factor, residual_norm
+from ..solver.memplan import plan_memory
+from ..solver.plan import build_plan
+from ..solver.symbolic import symbolic_from_matrix
 from ..utils import dbg, set_dbg_lvl, timed
 
 NOT_PORTED = "not yet ported to the torch package"
@@ -46,10 +56,12 @@ def parse_var_groups(vars_arg: str, coupled_tracer_cnt: int) -> list[list[str]]:
 def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
               backend: str = "auto", dbg_lvl: int = 0, rhs_chunk: int = 32,
               device: str | torch.device = "cuda",
-              precision: str = "f64") -> dict:
-    """Factor, solve every variable group and write the results in place.
-    Returns {"residuals": {group: rel residual}, "groups": [...],
-    "factorization": the factorization object}."""
+              precision: str = "f64",
+              factors_fname: str | None = None) -> dict:
+    """Factor (or load the factors of ``factors_fname``, see main), solve
+    every variable group and write the results in place. Returns
+    {"residuals": {group: rel residual}, "groups": [...], "factorization":
+    the factorization object}."""
     set_dbg_lvl(dbg_lvl)
     with timed("get_sparse_matrix"):
         matrix = read_matrix_file(matrix_fname)
@@ -62,7 +74,8 @@ def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
     groups = parse_var_groups(vars_arg, nt)
 
     kwargs = ({} if backend == "scipy" else
-              {"maps": maps, "device": device, "precision": precision})
+              {"maps": maps, "device": device, "precision": precision,
+               "numeric_checkpoint": factors_fname})
     with timed("factor"):
         fac = factor(matrix, backend=backend, **kwargs)
 
@@ -101,6 +114,37 @@ def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
     return results
 
 
+def run_memplan(matrix_fname: str, n_devices: int, dbg_lvl: int = 0,
+                precision: str = "f64",
+                device: str | torch.device = "cuda") -> int:
+    """Pre-flight sizing on the host: symbolic analysis, round plans
+    (batch multiple ``n_devices``) and the exact padded-shape memory walk,
+    no factorization, at the factor dtype ``precision`` gives on
+    ``device`` (which is not touched). Prints the JAX driver's lines."""
+    set_dbg_lvl(dbg_lvl)
+    matrix = read_matrix_file(matrix_fname)
+    maps = load_ind_maps(matrix_fname)
+    with timed("symbolic analysis"):
+        sym = symbolic_from_matrix(maps, matrix)
+    with timed("round plans"):
+        plans = build_plan(sym, matrix, batch_multiple=n_devices)
+    dtype = resolve_precision(precision, torch.device(device))
+    mp = plan_memory(plans, n_devices=n_devices,
+                     bytes_per_elem=dtype.itemsize)
+    gb = 1 / 2 ** 30
+    print(f"matrix: flat_len={matrix.flat_len} nnz={matrix.nnz} "
+          f"fronts={len(sym.fronts)} max_front={sym.max_front} "
+          f"factor_flops={sym.factor_flops():.3e}")
+    print(f"memory plan ({n_devices} device(s), "
+          f"{str(dtype).removeprefix('torch.')} factors):")
+    print(f"  factors resident: {mp.factor_bytes_total * gb:.2f} GB total, "
+          f"{mp.factor_bytes_per_device * gb:.2f} GB/device")
+    print(f"  Schur live peak:  {mp.schur_peak_per_device * gb:.2f} GB/device")
+    print(f"  transient peak:   {mp.transient_peak_per_device * gb:.2f} GB/device")
+    print(f"  peak per device:  {mp.peak_per_device * gb:.2f} GB")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="solve",
@@ -108,8 +152,9 @@ def main(argv=None) -> int:
                     "variables, updating the inout file in place")
     p.add_argument("-D", dest="dbg_lvl", type=int, default=0)
     p.add_argument("-n", dest="npgrid", default=None,
-                   help="nprow[,npcol] (reference compatibility; only a "
-                        "single device is ported)")
+                   help="nprow[,npcol]: the device count of --memplan's "
+                        "plan (a solve on more than one device is "
+                        + NOT_PORTED + ")")
     p.add_argument("-v", dest="vars", default=None,
                    help="comma-separated tracer variable names")
     p.add_argument("--backend", default="auto",
@@ -122,16 +167,21 @@ def main(argv=None) -> int:
                         "(auto: f32 on cuda, escalating to f64 when "
                         "refinement fails; f64 on cpu)")
     p.add_argument("--memplan", action="store_true",
-                   help="print the per-device memory plan (" + NOT_PORTED
-                        + ")")
+                   help="print the per-device memory plan for this matrix, "
+                        "-n's device count and --prec's dtype, then exit "
+                        "(host only, no factorization; the JAX engine's "
+                        "plan, which undercounts this engine's temporaries: "
+                        "see memplan.engine_round_peaks)")
     p.add_argument("--rhs-chunk", type=int, default=32,
                    help="stream tracer RHS groups through the solver this "
                         "many at a time")
     p.add_argument("--rhs-devices", type=int, default=1,
                    help="devices of an rhs mesh axis (" + NOT_PORTED + ")")
     p.add_argument("--factors", dest="factors_fname", default=None,
-                   help="numeric-factor checkpoint file (" + NOT_PORTED
-                        + ")")
+                   help="numeric-factor file: loaded (skipping the numeric "
+                        "factorization) when it exists and matches this "
+                        "matrix's values, else written after factoring "
+                        "(multifrontal backend)")
     p.add_argument("matrix_fname")
     p.add_argument("inout_fname", nargs="?", default=None)
     args = p.parse_args(argv)
@@ -140,23 +190,25 @@ def main(argv=None) -> int:
         parts = [int(x) for x in args.npgrid.split(",")]
         n_devices = parts[0] * (parts[1] if len(parts) > 1 else parts[0])
     unported = [flag for flag, used in (
-        (f"-n {args.npgrid}", n_devices > 1),
-        ("--rhs-devices", args.rhs_devices != 1),
-        ("--factors", args.factors_fname is not None),
-        ("--memplan", args.memplan)) if used]
+        (f"-n {args.npgrid}", n_devices > 1 and not args.memplan),
+        ("--rhs-devices", args.rhs_devices != 1)) if used]
     if unported:
         print(f"solve: {', '.join(unported)}: {NOT_PORTED}",
               file=sys.stderr)
         return 1
-    if not args.vars or args.inout_fname is None:
-        print("solve: -v VARS and inout_fname are required",
-              file=sys.stderr)
-        return 2
     try:
+        if args.memplan:
+            return run_memplan(args.matrix_fname, n_devices,
+                               dbg_lvl=args.dbg_lvl, precision=args.prec,
+                               device=args.device)
+        if not args.vars or args.inout_fname is None:
+            print("solve: -v VARS and inout_fname are required (unless "
+                  "--memplan)", file=sys.stderr)
+            return 2
         run_solve(args.matrix_fname, args.inout_fname, args.vars,
                   backend=args.backend, dbg_lvl=args.dbg_lvl,
                   rhs_chunk=args.rhs_chunk, device=args.device,
-                  precision=args.prec)
+                  precision=args.prec, factors_fname=args.factors_fname)
     except Exception as e:  # noqa: BLE001 - CLI boundary
         print(f"solve: {e}", file=sys.stderr)
         return 1

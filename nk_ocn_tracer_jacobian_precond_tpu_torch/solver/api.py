@@ -74,7 +74,9 @@ def factor(matrix: SparseMatrix, backend: str = "auto",
            device: str | torch.device = "cuda", precision="f64", **kwargs):
     """Factor ``matrix`` with ``backend``; the multifrontal backend runs on
     ``device`` with ``precision`` factors ("f64", "f32" or "auto") and
-    takes MultifrontalFactorization's other keyword arguments."""
+    passes MultifrontalFactorization's other keyword arguments through
+    (among them the checkpoints: ``factor_checkpoint_dir``,
+    ``numeric_checkpoint``)."""
     if backend == "auto":
         backend = "multifrontal"
     if backend == "scipy":

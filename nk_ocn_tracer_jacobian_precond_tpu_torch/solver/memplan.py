@@ -169,3 +169,126 @@ def plan_memory(plans, n_devices: int = 1, bytes_per_elem: int = 4,
                       transient_peak_bytes=trans_peak,
                       transient_peak_per_device=trans_peak_dev,
                       rounds=rounds)
+
+
+# allocations the walk below does not itemise (library workspaces, index
+# buffers): a share of each round's peak plus a fixed amount, fitted to
+# the per-round peaks of the gx3 factor-only pass on an H100 (chip_smoke.py
+# phase 7c prints them beside the plan)
+SLACK_FRAC, SLACK_BYTES = 0.02, 64 << 20
+
+
+def _consts_bytes(plan) -> int:
+    """The engine's device constants of one round (mf_torch
+    _device_constants): int64 index arrays, p_arr int32."""
+    n = 8 * (plan.a_col.size + plan.a_csrc.size + plan.a_pos.size
+             + plan.a_src.size + plan.cells_own.size
+             + 3 * plan.cells_bor.size) + 4 * plan.B
+    for g in plan.child_groups:
+        n += 8 * (2 * len(g.src_slots) + g.inv.size)
+    return n
+
+
+def _extend_add_bytes(g, src, N: int, e: int) -> int:
+    """mf_torch.extend_add's temporaries for one child group: the padded
+    source copy, then per chunk of links (its waves, cut at its chunk
+    length) the gathered rows (c, N, M+1) and their adds (c, N, N). A
+    chunk's rows are allocated while the previous chunk's rows and adds
+    are alive, its adds while the previous adds are."""
+    from .mf_torch import _ea_chunk_len, link_waves
+    mp1 = src.M + 1
+    lc = _ea_chunk_len(N, mp1, e)
+    _, waves = link_waves(g.dst_slots)
+    best = prev_r = prev_a = 0
+    for c in (min(lo + lc, stop) - lo for start, stop in waves
+              for lo in range(start, stop, lc)):
+        r, a = c * N * mp1 * e, c * N * N * e
+        best = max(best, prev_r + prev_a + r, prev_a + r + a)
+        prev_r, prev_a = r, a
+    return src.B * mp1 * mp1 * e + best
+
+
+def _factor_bytes(plan, e: int, pack_bs: int) -> int:
+    """Bytes above the front stack while mf_torch.partial_factor runs, its
+    outputs (K, U12, L21, the Schur block, perm) included."""
+    B, P, N, M = plan.B, plan.P, plan.N, plan.M
+    tb = min(pack_bs, P)
+    # pack_diag_inv: the copy, per diagonal block the inverses and their
+    # triangles (B, tb, tb) and the identity (tb, tb)
+    pack = (B * P * P + 5 * B * tb * tb + tb * tb) * e
+    outs = (B * P * P + 2 * B * P * M + B * M * M) * e + 8 * B * P
+    if B <= 2:
+        # the library LU's copy of F11, then finish_factor: the pack, F12
+        # gathered, U12 and L21 by block substitution (pieces and their
+        # concatenation), S = F22 - L21 @ U12
+        k, pm, blk = B * P * P * e, B * P * M * e, B * tb * tb * e
+        return k + max(pack, k + 4 * pm + blk, k + 5 * pm + blk,
+                       k + 3 * pm + 2 * B * M * M * e) + 8 * B * P
+    # per 128-column panel step: the gathered rows (B, R, N), the panel
+    # kernel's buffers and perms, the U block, then the trailing update's
+    # product (or the border TRSM's result); the previous step's rows,
+    # panel and U block are alive until this step's replace them
+    steps, prev = [], 0
+    for off in range(0, P, 128):
+        T, R = min(128, P - off), P - off
+        rows = B * R * N * e
+        kern = 3 * B * R * T * e + 16 * B * R
+        a12 = B * T * (N - off - T) * e
+        upd = max(B * (N - off - T) ** 2, B * (N - P) * T) * e
+        steps.append(max(prev + rows + kern, rows + kern + a12 + upd))
+        prev = rows + 2 * B * R * T * e + a12
+    return max(max(steps), prev + pack, prev + outs) + 8 * B * P
+
+
+def engine_round_peaks(plans, bytes_per_elem: int, nnz: int, pack_bs: int,
+                       factor_only: bool = True) -> list[int]:
+    """Device bytes the PyTorch engine (``mf_torch.TorchMultifrontal``)
+    holds at most while it factors each round, one round after another on
+    one device from round 0, as ``torch.cuda.max_memory_allocated`` counts
+    them. A round's figure covers the previous round's save too.
+
+    ``plan_memory`` models the JAX engine, whose compiled programs fuse
+    most temporaries away. The PyTorch engine runs eager ops, each of which
+    allocates its result, so this walk counts them op by op: the CSR
+    values and the plan constants; the live Schur stacks, each freed after
+    its last consumer's extend-add; the (B, N, N) front stack; extend-add's
+    temporaries; partial_factor's (``_factor_bytes``). ``factor_only``
+    (the checkpointed pass with offload): a round's constants are built
+    when it runs, and its factors leave the device once saved. Otherwise
+    (the resident engine) every round's constants are built first and the
+    factors stay. A factor-only resume, which loads the rounds on disk,
+    holds no more in each round it computes than the whole pass."""
+    e = bytes_per_elem
+    last_use = {}
+    for rnd, plan in enumerate(plans):
+        for g in plan.child_groups:
+            last_use[g.src_round] = rnd
+    schur = [p.B * p.M * p.M * e if last_use.get(r, -1) > r else 0
+             for r, p in enumerate(plans)]
+    held = (nnz + 1) * e                       # the CSR values, extended
+    if not factor_only:
+        held += sum(_consts_bytes(p) for p in plans)
+    live = tail = 0                            # Schur stacks; last save
+    peaks = []
+    for rnd, plan in enumerate(plans):
+        B, P, N, M = plan.B, plan.P, plan.N, plan.M
+        if factor_only:
+            held += _consts_bytes(plan)
+        front = B * N * N * e
+        peak = tail
+        for g in plan.child_groups:
+            peak = max(peak, held + live + front + _extend_add_bytes(
+                g, plans[g.src_round], N, e))
+            if last_use[g.src_round] == rnd:
+                live -= schur[g.src_round]
+        peak = max(peak, held + live + front + _factor_bytes(plan, e,
+                                                             pack_bs))
+        # through the save: the outputs, the Schur block among them
+        factors = (B * P * P + 2 * B * P * M) * e + 8 * B * P
+        if not factor_only:
+            held += factors
+        tail = held + live + B * M * M * e + (factors if factor_only else 0)
+        live += schur[rnd]
+        peak = max(peak, tail)
+        peaks.append(int(peak * (1 + SLACK_FRAC)) + SLACK_BYTES)
+    return peaks

@@ -13,8 +13,10 @@ again.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -22,6 +24,7 @@ import torch
 from ..device import resolve_device, resolve_precision
 from ..io.matrixfile import SparseMatrix
 from ..utils import dbg, timed
+from .checkpoint import load_factors, save_factors
 from .memplan import plan_memory
 from .mf_torch import TorchMultifrontal
 from .refine import DeviceRefiner
@@ -121,15 +124,22 @@ class MultifrontalFactorization:
     up (raw preconditioner error above ``giveup``) refactors in float64
     and solves again, unless ``escalate`` is False; ``escalation`` then
     records the float32 attempt (its max relative residual and refiner
-    stats). ``timings`` holds the seconds of each phase of the last
-    factorization (symbolic, equilibrate, plan, factor; escalate once
-    escalated)."""
+    stats). ``factor_checkpoint_dir`` gives the engine per-round factor
+    checkpoints there (mf_torch.TorchMultifrontal: resume, offload).
+    ``numeric_checkpoint`` names a whole-set factor file
+    (checkpoint.save_factors): loaded in place of the numeric phase when it
+    exists and matches the matrix (its factors cast to the engine's dtype),
+    else written after factoring. ``timings`` holds the seconds of each
+    phase of the last factorization (symbolic, equilibrate, plan, factor or
+    load_factors; escalate once escalated)."""
 
     def __init__(self, matrix: SparseMatrix, leaf_size: int = 32,
                  refine_tol: float = 1e-13, maps=None,
                  sym: SymbolicFactorization | None = None,
                  device: str | torch.device = "cuda", precision="f64",
-                 escalate: bool = True, giveup: float = 0.25):
+                 escalate: bool = True, giveup: float = 0.25,
+                 factor_checkpoint_dir: str | None = None,
+                 numeric_checkpoint: str | None = None):
         self.device = resolve_device(device)
         prec = resolve_precision(precision, self.device)
         self.matrix = matrix
@@ -154,10 +164,34 @@ class MultifrontalFactorization:
         with timed("equilibration"):
             self._fac_matrix, self.dr, self.dc = equilibrate(matrix)
         self.timings["equilibrate"] = time.perf_counter() - t0
+        loadable = (numeric_checkpoint is not None
+                    and os.path.exists(numeric_checkpoint))
         with timed("numeric factorization (torch)"):
-            self.engine = TorchMultifrontal(sym, self._fac_matrix,
-                                            self.device, prec=prec)
+            self.engine = TorchMultifrontal(
+                sym, self._fac_matrix, self.device, prec=prec,
+                checkpoint_dir=factor_checkpoint_dir,
+                factorize=not loadable)
+        loaded = loadable and self._load_factors(numeric_checkpoint)
+        if numeric_checkpoint is not None and not loaded:
+            save_factors(numeric_checkpoint, self)
+            dbg(1, f"numeric factors saved to {numeric_checkpoint}")
         self.timings.update(self.engine.timings)
+
+    def _load_factors(self, path: str) -> bool:
+        """Load the factor file at ``path``; when it is rejected (stale
+        values, another pattern or pack block size, an unreadable file),
+        log why and factor instead. Returns whether it loaded."""
+        t0 = time.perf_counter()
+        try:
+            load_factors(path, self)
+        except (ValueError, KeyError, OSError, zipfile.BadZipFile) as e:
+            dbg(1, f"factor checkpoint rejected ({type(e).__name__}: {e}); "
+                   f"refactoring")
+            self.engine.refactor(self._fac_matrix)
+            return False
+        self.timings["load_factors"] = time.perf_counter() - t0
+        dbg(1, f"numeric factors loaded from {path}")
+        return True
 
     def refactor(self, matrix: SparseMatrix | None = None) -> None:
         """Numeric refactorization with the same sparsity pattern (new
@@ -193,6 +227,8 @@ class MultifrontalFactorization:
 
     def _precond_solve(self, b: np.ndarray) -> np.ndarray:
         """Apply the (scaled) factorization: x ~= A^{-1} b."""
+        if self.dr is None:
+            return np.asarray(self.engine.solve(b), dtype=np.float64)
         scaled_b = self.dr[:, None] * b if b.ndim == 2 else self.dr * b
         y = np.asarray(self.engine.solve(scaled_b), dtype=np.float64)
         return self.dc[:, None] * y if y.ndim == 2 else self.dc * y
@@ -230,13 +266,15 @@ class MultifrontalFactorization:
         # free the float32 engine (factors, device constants) and the
         # refiner before the float64 build: both resident at once is an
         # avoidable OOM
+        ckpt_dir = self.engine._ckpt_dir
         self.engine = self._refiner = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with timed("float64 escalation refactorization"):
-            self.engine = TorchMultifrontal(self.sym, self._fac_matrix,
-                                            self.device, prec=torch.float64)
+            self.engine = TorchMultifrontal(
+                self.sym, self._fac_matrix, self.device, prec=torch.float64,
+                checkpoint_dir=ckpt_dir)
         self.timings["escalate"] = time.perf_counter() - t0
         self.timings.update(self.engine.timings)
         return True

@@ -16,7 +16,12 @@ dependency order; each round is a batch of padded dense fronts (B, N, N):
 The stored factors per round are K (B, P, P) (the ``pack_diag_inv``
 layout), U12 (B, P, M), L21 (B, M, P) and perm (B, P). The solve walks
 the rounds forward then backward over a (flat_len + 1, nrhs) workspace
-whose last row takes every pad index. Factors, Schur stacks and the
+whose last row takes every pad index; the forward sweep subtracts each
+round's border updates in waves of distinct destinations, so its sums
+are the same on every run (``border_waves``). With a checkpoint directory
+the engine writes each round to disk and resumes from it
+(``checkpoint.FactorRoundCheckpointer``), and can keep its factors off
+the device (offload, factor-only). Factors, Schur stacks and the
 workspace are in the engine's factor dtype ``prec`` (float64, or float32);
 rounds with P >= HI_ROUND_MIN_P run their substitutions in float64 on
 float32 factors.
@@ -28,6 +33,7 @@ so.
 
 from __future__ import annotations
 
+import hashlib
 import time
 
 import numpy as np
@@ -36,6 +42,7 @@ import torch
 from ..io.matrixfile import SparseMatrix
 from ..utils import dbg, timed
 from . import cuda_kernels as ck
+from .checkpoint import FactorRoundCheckpointer
 from .memplan import plan_memory
 from .plan import build_plan
 from .symbolic import SymbolicFactorization
@@ -269,12 +276,30 @@ def set_own(W, vals, cells_own):
     return W
 
 
-def fwd_round(W, K, U12, L21, perm, cells_own, cells_bor, bs: int = PANEL,
+def border_waves(cells_bor: np.ndarray, flat_len: int):
+    """The border subtraction of one round in waves of distinct
+    destinations: (src, dst, waves) with src the flattened (B * M) update
+    rows in wave order, dst their workspace rows and waves the [start,
+    stop) ranges of link_waves. Subtracting the waves in turn sums each
+    border cell's updates in flattened update order, as a sequential
+    scatter-add (and the JAX reference on the CPU) does, with no duplicate
+    index in any index_add_: the same sums on every run, on the CPU and on
+    CUDA. Pad entries (the dump row, which only ever receives zero rows)
+    are dropped."""
+    flat = np.asarray(cells_bor, dtype=np.int64).reshape(-1)
+    keep = np.flatnonzero(flat < flat_len)
+    order, waves = link_waves(flat[keep])
+    src = keep[order]
+    return src, flat[src], waves
+
+
+def fwd_round(W, K, U12, L21, perm, cells_own, border, bs: int = PANEL,
               hi: bool = False):
     """Forward substitution for one round, batched over fronts, in place
-    on the workspace W (flat_len + 1, nrhs). ``hi``: the arithmetic runs in
-    float64 on transient upcasts of the factors, and the results are stored
-    back at W's dtype."""
+    on the workspace W (flat_len + 1, nrhs); ``border`` is the round's
+    (src, dst, waves) of border_waves, as tensors on W's device (waves a
+    list). ``hi``: the arithmetic runs in float64 on transient upcasts of
+    the factors, and the results are stored back at W's dtype."""
     nrhs = W.shape[1]
     rhs = W[cells_own]                                   # (B, P, nrhs)
     rhs = torch.gather(rhs, 1, perm[:, :, None].expand(-1, -1, nrhs))
@@ -283,7 +308,10 @@ def fwd_round(W, K, U12, L21, perm, cells_own, cells_bor, bs: int = PANEL,
     y = block_lower_apply(K, rhs, bs)
     upd = (L21 @ y).to(W.dtype)
     set_own(W, y.to(W.dtype), cells_own)
-    W.index_add_(0, cells_bor.reshape(-1), upd.reshape(-1, nrhs), alpha=-1)
+    src, dst, waves = border
+    upd = upd.reshape(-1, nrhs)[src]
+    for a, b in waves:
+        W.index_add_(0, dst[a:b], upd[a:b], alpha=-1)
     return W
 
 
@@ -303,7 +331,7 @@ def solve_rounds(W, factors, consts, bs: int, hi=None):
     hi[r] runs round r's substitutions in float64 (see fwd_round)."""
     hi = hi or [False] * len(factors)
     for (K, U12, L21, perm), cc, h in zip(factors, consts, hi):
-        W = fwd_round(W, K, U12, L21, perm, cc["own"], cc["bor"], bs, h)
+        W = fwd_round(W, K, U12, L21, perm, cc["own"], cc["border"], bs, h)
     for (K, U12, L21, _), cc, h in zip(reversed(factors), reversed(consts),
                                        reversed(hi)):
         W = bwd_round(W, K, U12, L21, cc["own"], cc["bor"], bs, h)
@@ -329,21 +357,61 @@ def factors_from_jax(jax_engine, device) -> tuple:
 # the engine
 # --------------------------------------------------------------------------
 
+def pack_block_size(plans) -> int:
+    """The adaptive solve block size of ``pack_diag_inv``: full explicit
+    diagonal-block inverses on shallow trees, narrower blocks as element
+    growth deepens."""
+    maxP = max((p.P for p in plans), default=PANEL)
+    if maxP <= 2048:
+        return maxP
+    if maxP <= 4096:
+        return 1024
+    return 512
+
+
 class TorchMultifrontal:
     """Single-device numeric engine over the round plans: factor
     (``refactor`` for new values on the same pattern) and multi-RHS
     solve. ``device`` is a torch.device (see device.resolve_device),
-    ``prec`` the factor dtype (torch.float64 or torch.float32)."""
+    ``prec`` the factor dtype (torch.float64 or torch.float32).
+
+    With ``checkpoint_dir`` every completed round is written there
+    (checkpoint.FactorRoundCheckpointer) and rounds with a valid
+    checkpoint are loaded instead of recomputed, so a factor pass resumes
+    after a process death. ``offload`` (on by default with a checkpoint
+    directory) drops each round's factors from the device once they are on
+    disk and streams them back after the last round: the factor pass then
+    holds only the live Schur stacks and one round's fronts.
+    ``factor_only`` writes the checkpoints and keeps no factors (the
+    engine cannot solve; another engine, or ``stream_solve``, resumes from
+    the directory); ``stop_after`` (factor-only only) ends the pass after
+    that round, leaving a directory the next engine continues from."""
 
     def __init__(self, sym: SymbolicFactorization, matrix: SparseMatrix,
                  device: torch.device, factorize: bool = True,
-                 prec: torch.dtype = torch.float64):
+                 prec: torch.dtype = torch.float64,
+                 checkpoint_dir: str | None = None,
+                 factor_only: bool = False, offload: bool | None = None,
+                 stop_after: int | None = None):
         if prec not in NUMPY_DTYPE:
             raise ValueError(f"unsupported factor dtype {prec}")
+        if offload is None:
+            offload = checkpoint_dir is not None
+        if (offload or factor_only) and checkpoint_dir is None:
+            raise ValueError("offload and factor_only need a checkpoint_dir "
+                             "(the factors live there)")
+        if stop_after is not None and not factor_only:
+            raise ValueError("stop_after requires factor_only (a partial "
+                             "factor set cannot solve)")
         self.sym = sym
         self.device = torch.device(device)
         self.prec = prec
         self.flat_len = sym.flat_len
+        self._ckpt_dir = checkpoint_dir
+        self._offload = offload
+        self._factor_only = factor_only
+        self._stop_after = stop_after
+        self._ckpt = None
         self.timings: dict[str, float] = {}
         t0 = time.perf_counter()
         with timed("build round plans"):
@@ -351,46 +419,108 @@ class TorchMultifrontal:
             # JAX engine calls it: the chunking (and so every round and
             # pivot) must be the same
             self.plans = build_plan(sym, matrix, batch_multiple=1)
-        # adaptive solve block size: full explicit diagonal-block inverses
-        # on shallow trees, narrower blocks as element growth deepens
-        maxP = max((p.P for p in self.plans), default=PANEL)
-        if maxP <= 2048:
-            self._pack_bs = maxP
-        elif maxP <= 4096:
-            self._pack_bs = 1024
-        else:
-            self._pack_bs = 512
+        self._pack_bs = pack_block_size(self.plans)
         dbg(1, "memory plan: "
             + plan_memory(self.plans, 1, prec.itemsize).summary())
-        with timed("device constants"):
-            self._consts = self._device_constants()
+        # each round's device constants are built on its first use: a
+        # factor-only pass builds none for the rounds it loads, the stream
+        # solve's engine none at all. An engine that will solve needs them
+        # all, and builds them here, outside timings["factor"]
+        self._consts: list[dict | None] = [None] * len(self.plans)
+        if factorize and not factor_only:
+            with timed("device constants"):
+                for rnd in range(len(self.plans)):
+                    self._round_consts(rnd)
         self.timings["plan"] = time.perf_counter() - t0
         self.factors = None
         if factorize:
             self._factorize(matrix)
 
-    def _device_constants(self) -> list[dict]:
-        def put(a, dtype=torch.int64):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                device=self.device, dtype=dtype)
+    def _put(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """A host array on the engine's device at ``dtype``."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype)
 
-        consts = []
-        for p in self.plans:
-            groups = []
-            for g in p.child_groups:
-                order, waves = link_waves(g.dst_slots)
-                groups.append((g.src_round, put(g.src_slots[order]),
-                               put(g.dst_slots[order]), put(g.inv[order]),
-                               waves))
-            consts.append(dict(
-                a_col=put(p.a_col), a_csrc=put(p.a_csrc),
-                a_pos=put(p.a_pos), a_src=put(p.a_src),
-                # any real spill entries? (pads sit at >= N*N)
-                spill=bool((p.a_pos < p.N * p.N).any()),
-                p_arr=put(p.p_arr, torch.int32),
-                own=put(p.cells_own), bor=put(p.cells_bor),
-                groups=groups))
-        return consts
+    def _round_consts(self, rnd: int) -> dict:
+        """Round ``rnd``'s plan constants on the device, built on first
+        use and kept."""
+        if self._consts[rnd] is None:
+            self._consts[rnd] = self._device_constants(self.plans[rnd])
+        return self._consts[rnd]
+
+    def _device_constants(self, p) -> dict:
+        def put(a, dtype=torch.int64):
+            return self._put(a, dtype)
+
+        groups = []
+        for g in p.child_groups:
+            order, waves = link_waves(g.dst_slots)
+            groups.append((g.src_round, put(g.src_slots[order]),
+                           put(g.dst_slots[order]), put(g.inv[order]),
+                           waves))
+        src, dst, waves = border_waves(p.cells_bor, self.flat_len)
+        return dict(
+            a_col=put(p.a_col), a_csrc=put(p.a_csrc),
+            a_pos=put(p.a_pos), a_src=put(p.a_src),
+            # any real spill entries? (pads sit at >= N*N)
+            spill=bool((p.a_pos < p.N * p.N).any()),
+            p_arr=put(p.p_arr, torch.int32),
+            own=put(p.cells_own), bor=put(p.cells_bor),
+            border=(put(src), put(dst), waves),
+            groups=groups)
+
+    def _plan_pm(self, plan) -> np.ndarray:
+        """True (pivot, border) sizes per batch entry of a round: the trim
+        map of the v3 round checkpoints ((0, 0) for padding entries)."""
+        pm = np.zeros((plan.B, 2), dtype=np.int64)
+        for b, nid in enumerate(plan.node_ids):
+            f = self.sym.fronts[nid]
+            pm[b] = (f.p, f.n - f.p)
+        return pm
+
+    def _ckpt_for(self, matrix: SparseMatrix, nz: np.ndarray | None = None):
+        """The round checkpointer keyed to this matrix's values (in the
+        factor dtype), the plan shape, the factor layout version and the
+        pack block size: the key under which two engines (a factor-only
+        pass and a later solve, of either package) agree that they resume
+        the same factorization. None without a checkpoint directory."""
+        if self._ckpt_dir is None:
+            return None
+        if nz is None:
+            nz = np.zeros(len(matrix.nzval) + 1, dtype=NUMPY_DTYPE[self.prec])
+            nz[:-1] = matrix.nzval
+        h = hashlib.sha1(nz.tobytes())
+        h.update(np.int64([self.flat_len, len(self.plans)]).tobytes())
+        # the layout version (v2: the pack_diag_inv block-substitution
+        # layout); a pack_bs other than PANEL changes the packed K and keys
+        # in, as the JAX engine keys it
+        h.update(b"factor-layout-v2")
+        if self._pack_bs != PANEL:
+            h.update(f"pack_bs={self._pack_bs}".encode())
+        return FactorRoundCheckpointer(self._ckpt_dir, h.hexdigest())
+
+    def _scan_done(self, ckpt) -> set[int]:
+        """Resumable rounds: shape- and value-valid checkpoints, minus (to
+        a fixpoint) any round whose Schur stack a not-yet-checkpointed
+        consumer needs but whose S file is gone; dropping a round can
+        orphan its own sources' Schur needs in turn."""
+        done = ckpt.scan(self.plans)
+        if not done:
+            return done
+        consumers: list[list[int]] = [[] for _ in self.plans]
+        for rnd, plan in enumerate(self.plans):
+            for g in plan.child_groups:
+                consumers[g.src_round].append(rnd)
+        changed = True
+        while changed:
+            changed = False
+            for rnd in list(done):
+                need = any(c not in done for c in consumers[rnd])
+                if need and self.plans[rnd].M > 0 \
+                        and not ckpt.has_schur(rnd):
+                    done.discard(rnd)
+                    changed = True
+        return done
 
     def refactor(self, matrix: SparseMatrix) -> None:
         """New numeric values, same pattern (Newton-iteration reuse)."""
@@ -408,37 +538,121 @@ class TorchMultifrontal:
         eps = float(np.finfo(nz.dtype).eps)
         amax = float(np.max(np.abs(nz))) if len(matrix.nzval) else 1.0
         self._tau = float(np.float32(np.sqrt(eps) * amax))
+        self._ckpt = self._ckpt_for(matrix, nz)
         t0 = time.perf_counter()
         with timed("factor dispatch"):
-            nzval_ext = torch.from_numpy(nz).to(self.device)
-            self.factors = self._factor_rounds(nzval_ext)
+            nzval_ext = self._put(nz, self.prec)
+            factors = self._factor_rounds(nzval_ext)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.timings["factor"] = time.perf_counter() - t0
+        if self._factor_only:
+            dbg(1, f"factor-only: factors persisted to {self._ckpt_dir}; "
+                   f"engine holds none")
+            factors = None
+        self.factors = factors
 
     def _factor_rounds(self, nzval_ext) -> tuple:
         """Walk the rounds in dependency order, freeing each Schur stack
-        as soon as its last consumer has extend-added it."""
+        as soon as its last consumer has extend-added it. With a round
+        checkpointer, rounds with a valid checkpoint are loaded, the others
+        computed and saved (see the class docstring)."""
+        ckpt = self._ckpt
         factors = []
         schur: list = [None] * len(self.plans)
         uses = [0] * len(self.plans)
-        for plan in self.plans:
+        consumers: list[list[int]] = [[] for _ in self.plans]
+        for rnd, plan in enumerate(self.plans):
             for g in plan.child_groups:
                 uses[g.src_round] += 1
-        for rnd, (plan, cc) in enumerate(zip(self.plans, self._consts)):
+                consumers[g.src_round].append(rnd)
+        done: set[int] = set()
+        repair: set[int] = set()
+        if ckpt is not None:
+            done = self._scan_done(ckpt)
+            # Schur repair: rounds whose factors are on disk but whose
+            # Schur stack a pending consumer needs is gone are recomputed
+            # for their Schur only; their factor files are kept
+            repair = ckpt.scan(self.plans) - done
+            if repair:
+                dbg(1, f"factor checkpoint: {len(repair)} rounds have "
+                       f"valid factors but missing Schur stacks; "
+                       f"recomputing them for their Schur only")
+        t_round = time.perf_counter()
+        for rnd, plan in enumerate(self.plans):
+            if rnd in done:
+                need_s = (plan.M > 0
+                          and any(c not in done for c in consumers[rnd]))
+                loaded = ckpt.load_round(rnd, plan, self, need_schur=need_s,
+                                         factors=not self._offload)
+                if loaded is not None:
+                    for g in plan.child_groups:
+                        uses[g.src_round] -= 1
+                        if uses[g.src_round] == 0:
+                            schur[g.src_round] = None
+                            ckpt.drop_schur(g.src_round)
+                    factors.append(loaded[:4])
+                    schur[rnd] = loaded[4]
+                    # schur[rnd] must hold the stack's only reference, or
+                    # it outlives its last consumer
+                    del loaded
+                    continue
+                done.discard(rnd)   # checkpoint vanished mid-run: recompute
+            cc = self._round_consts(rnd)
             F = ck.ell_assemble(nzval_ext, cc["a_col"], cc["a_csrc"],
                                 cc["a_pos"], cc["a_src"], cc["p_arr"],
                                 plan.N, plan.P, cc["spill"])
+            drops: list[int] = []
             for src_rnd, ss, ds, inv, waves in cc["groups"]:
                 extend_add(F, schur[src_rnd], ss, ds, inv, waves)
                 uses[src_rnd] -= 1
                 if uses[src_rnd] == 0:
+                    # free the device memory now, but delete the source's
+                    # file only once this round's own checkpoint is on
+                    # disk: a death between the two must leave a
+                    # resumable prefix
                     schur[src_rnd] = None
+                    drops.append(src_rnd)
             K, U12, L21, S, perm = partial_factor(
                 F, plan.P, cc["p_arr"], self._tau, self._pack_bs)
             del F
             schur[rnd] = S if uses[rnd] > 0 else None
-            factors.append((K, U12, L21, perm))
+            if ckpt is not None:
+                # the host copy in either save synchronizes the round
+                if rnd not in repair:
+                    ckpt.save_round(rnd, plan, K, U12, L21, perm,
+                                    schur[rnd], pm=self._plan_pm(plan))
+                elif schur[rnd] is not None and plan.M > 0:
+                    ckpt.save_schur(rnd, S)
+                for src in drops:
+                    ckpt.drop_schur(src)
+                now = time.perf_counter()
+                dbg(1, f"factor round {rnd + 1}/{len(self.plans)} "
+                       f"B={plan.B} P={plan.P} N={plan.N} "
+                       f"({now - t_round:.1f}s)"
+                       + (" [repair]" if rnd in repair else ""))
+                t_round = now
+            if self._offload:
+                factors.append((None,) * 4)
+            else:
+                factors.append((K, U12, L21, perm))
+            del K, U12, L21, S, perm
+            if self._stop_after is not None and rnd >= self._stop_after:
+                dbg(1, f"factor stop-after: handing off at round {rnd} "
+                       f"({len(self.plans) - 1 - rnd} rounds remain)")
+                return tuple(factors)
+        if ckpt is not None:
+            # every round is on disk now: no resume needs a Schur stack
+            for rnd, plan in enumerate(self.plans):
+                if plan.M > 0:
+                    ckpt.drop_schur(rnd)
+            if self._offload and not self._factor_only:
+                dbg(1, f"factor offload: streaming factors back from "
+                       f"{ckpt.dir}")
+                for rnd, plan in enumerate(self.plans):
+                    if factors[rnd][0] is None:
+                        factors[rnd] = ckpt.load_round(
+                            rnd, plan, self, need_schur=False)[:4]
         return tuple(factors)
 
     def _hi_round(self, plan) -> bool:
@@ -451,7 +665,8 @@ class TorchMultifrontal:
         as its preconditioner (mf_jax.JaxMultifrontal._solve_program)."""
         if self.factors is None:
             raise RuntimeError("no numeric factors: call refactor() first")
-        return solve_rounds(W, self.factors, self._consts, self._pack_bs,
+        consts = [self._round_consts(r) for r in range(len(self.plans))]
+        return solve_rounds(W, self.factors, consts, self._pack_bs,
                             [self._hi_round(p) for p in self.plans])
 
     def solve(self, b: np.ndarray) -> np.ndarray:

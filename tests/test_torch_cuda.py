@@ -239,3 +239,39 @@ def test_hi_rounds_on_card(card, problem, monkeypatch):
     assert ("cuda", torch.float32, True) in calls
     assert all(hi for _, _, hi in calls)
     assert np.abs(out[0] - out[1]).max() <= 1e-10 * np.abs(out[1]).max()
+
+
+@pytest.mark.cuda
+def test_f32_unrefined_solves_repeat_bitwise(card, problem):
+    """The border subtraction adds in waves of distinct destinations, so
+    unrefined f32 solves on the same factors repeat bit for bit on the
+    card (with index_add_'s atomics over shared border cells they differed
+    by ~1e-4 relative)."""
+    matrix, maps = problem
+    fac = MultifrontalFactorization(matrix, maps=maps, device=card,
+                                    precision="f32")
+    B = np.random.default_rng(12).standard_normal((matrix.flat_len, 4))
+    first = fac.solve(B, refine=False)
+    for _ in range(3):
+        assert np.array_equal(fac.solve(B, refine=False), first)
+
+
+@pytest.mark.cuda
+def test_offload_on_card_equals_resident(card, problem, tmp_path):
+    """Round checkpoints written from the card and streamed back equal the
+    resident factors (torch.equal); a resume from the directory assembles
+    no round."""
+    matrix, maps = problem
+    res = MultifrontalFactorization(matrix, maps=maps, device=card)
+    eng = res.engine
+    off = mf_torch.TorchMultifrontal(res.sym, res._fac_matrix, card,
+                                     checkpoint_dir=str(tmp_path))
+    assert off._offload
+    for a, b in zip(off.factors, eng.factors, strict=True):
+        assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+    before = ck.LAUNCHES["ell_assemble_f64"]
+    again = mf_torch.TorchMultifrontal(res.sym, res._fac_matrix, card,
+                                       checkpoint_dir=str(tmp_path))
+    assert ck.LAUNCHES["ell_assemble_f64"] == before
+    for a, b in zip(again.factors, eng.factors, strict=True):
+        assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))

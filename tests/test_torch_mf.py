@@ -151,6 +151,78 @@ def test_link_waves():
         assert len(set(ds[order[a:b]].tolist())) == b - a
 
 
+def test_border_waves():
+    """Pads dropped; each wave's destinations distinct; each border cell's
+    updates in flattened update order."""
+    bor = np.array([[5, 2, 9], [2, 5, 9], [2, 7, 9]])
+    src, dst, waves = mf_torch.border_waves(bor, flat_len=9)
+    assert waves == [(0, 3), (3, 5), (5, 6)]
+    assert src.tolist() == [0, 1, 7, 3, 4, 6]
+    assert dst.tolist() == [5, 2, 7, 2, 5, 2]
+
+
+def test_engine_border_waves(fixture_pair):
+    """On every round of the fixture: the waves cover every real border
+    entry once, no index_add_ sees a duplicate, each cell sums in
+    flattened order; the fixture has rounds with shared border cells."""
+    _, _, tf, _ = fixture_pair
+    eng = tf.engine
+    shared = 0
+    for plan, cc in zip(eng.plans, eng._consts):
+        src, dst, waves = (t if isinstance(t, list) else t.numpy()
+                           for t in cc["border"])
+        flat = plan.cells_bor.reshape(-1)
+        assert sorted(src.tolist()) == np.flatnonzero(
+            flat < eng.flat_len).tolist()
+        assert np.array_equal(dst, flat[src])
+        for a, b in waves:
+            assert len(set(dst[a:b].tolist())) == b - a
+        for d in set(dst.tolist()):
+            assert np.all(np.diff(src[dst == d]) > 0)
+        shared += len(waves) > 1
+    assert shared
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_fwd_round_matches_jax(fixture_pair, dtype):
+    """The border subtraction sums each shared border cell's updates in
+    the order of the JAX scatter-add: fwd_round bit for bit with
+    mf_jax._fwd_round on a round with shared border cells. K is the
+    identity and each row of L21 has one entry, so y and L21 @ y are exact
+    in both packages and only the order of the border sums can differ
+    (reversing the waves does change the bits)."""
+    _, _, tf, _ = fixture_pair
+    eng = tf.engine
+    rnd = next(r for r, cc in enumerate(eng._consts)
+               if len(cc["border"][2]) > 1)
+    plan, cc = eng.plans[rnd], eng._consts[rnd]
+    B, P, M, nrhs = plan.B, plan.P, plan.M, 3
+    rng = np.random.default_rng(11)
+    W = rng.standard_normal((eng.flat_len + 1, nrhs)).astype(dtype)
+    W[-1] = 0
+    K = np.broadcast_to(np.eye(P, dtype=dtype), (B, P, P)).copy()
+    L21 = np.zeros((B, M, P), dtype)
+    real = plan.cells_bor < eng.flat_len
+    b, m = np.nonzero(real)
+    L21[b, m, rng.integers(0, P, len(b))] = rng.standard_normal(len(b))
+    perm = np.stack([rng.permutation(P) for _ in range(B)])
+    U12 = np.zeros((B, P, M), dtype)
+    args = (K, U12, L21, perm)
+    want = mf_jax._fwd_round(jnp.asarray(W), *map(jnp.asarray, args), None,
+                             jnp.asarray(plan.cells_own),
+                             jnp.asarray(plan.cells_bor), bs=eng._pack_bs)
+    got = mf_torch.fwd_round(torch.from_numpy(W.copy()),
+                             *map(torch.from_numpy, args), cc["own"],
+                             cc["border"], eng._pack_bs)
+    n = eng.flat_len
+    assert np.array_equal(got.numpy()[:n], np.asarray(want)[:n])
+    src, dst, waves = cc["border"]
+    rev = mf_torch.fwd_round(torch.from_numpy(W.copy()),
+                             *map(torch.from_numpy, args), cc["own"],
+                             (src, dst, waves[::-1]), eng._pack_bs)
+    assert not np.array_equal(rev.numpy()[:n], np.asarray(want)[:n])
+
+
 @pytest.mark.parametrize("nrhs", [1, 2, 4])
 def test_solve_on_jax_factors_matches_jax(fixture_pair, nrhs):
     """The port's solve on the JAX engine's own factors (factors_from_jax)

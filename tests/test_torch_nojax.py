@@ -102,10 +102,12 @@ def _package_of(path: Path) -> list[str]:
 
 
 def test_no_module_imports_the_jax_package():
-    """Static check over every module of the port and chip_smoke.py: no
-    import statement names jax or the JAX package (at any depth, relative
-    imports resolved)."""
-    files = sorted((REPO / PKG).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Static check over every module of the port, chip_smoke.py and the
+    port's scripts: no import statement names jax or the JAX package (at
+    any depth, relative imports resolved)."""
+    files = (sorted((REPO / PKG).rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "scripts").glob("torch_*.py"))
+             + [REPO / "scripts" / "panel_sweep.py"])
     assert len(files) >= 30
     bad = []
     for f in files:

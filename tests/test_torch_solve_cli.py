@@ -3,7 +3,9 @@
 The workflow recipe (24x20x6, two tracers): gen_A writes the matrix, each
 driver solves a copy of the same tracer file in place. The outputs must
 agree, keep land cells bit-identical, and meet the 1e-10 residual
-contract; the options that are not ported must exit with status 1.
+contract; ``--factors`` writes, then loads the factors, ``--memplan``
+prints the JAX driver's lines, and the options that are not ported must
+exit with status 1.
 """
 
 import shutil
@@ -20,6 +22,7 @@ from nk_ocn_tracer_jacobian_precond_tpu.io.matrixfile import read_matrix_file
 from nk_ocn_tracer_jacobian_precond_tpu.testdata import (make_circ_file,
                                                          make_tracer_file)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import solve
+from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import cuda_kernels as ck
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
     MultifrontalFactorization)
 
@@ -89,8 +92,7 @@ def test_cli_residual(workflow, var):
 
 
 @pytest.mark.parametrize("flags", [["-n", "2"], ["-n", "2,1"],
-                                   ["--rhs-devices", "2"],
-                                   ["--factors", "f.npz"], ["--memplan"]])
+                                   ["--rhs-devices", "2"]])
 def test_unported_options_exit_1(workflow, flags, capsys):
     mat, before, _ = workflow
     rc = solve.main([*flags, "--device", "cpu", "-v", VARS[0], mat, before])
@@ -138,3 +140,63 @@ def test_cli_rejects_unknown_prec(workflow, capsys):
                     before])
     assert exc.value.code == 2
     assert "invalid choice" in capsys.readouterr().err
+
+
+def test_cli_factors_save_then_load(workflow, tmp_path, capsys, monkeypatch):
+    """--factors: the first run factors and writes the file, the second
+    loads it (no round assembled) and writes the same solution bit for
+    bit, within the contract."""
+    mat, before, _ = workflow
+    calls = []
+    real = ck.ell_assemble
+    monkeypatch.setattr(ck, "ell_assemble",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    f = str(tmp_path / "factors.npz")
+    outs = []
+    for run in range(2):
+        path = str(tmp_path / f"t{run}.nc")
+        shutil.copy(before, path)
+        n = len(calls)
+        assert solve.main(["-D", "1", "--device", "cpu", "--factors", f,
+                           "-v", ",".join(VARS), mat, path]) == 0
+        log = capsys.readouterr().out
+        if run == 0:
+            assert len(calls) > n and f"numeric factors saved to {f}" in log
+        else:
+            assert len(calls) == n and f"numeric factors loaded from {f}" \
+                in log
+        outs.append(path)
+    A = read_matrix_file(mat).to_scipy()
+    maps = load_ind_maps(mat)
+    for var in VARS:
+        b = maps.flatten_field(_read(before, var))
+        x0, x1 = (maps.flatten_field(_read(p, var)) for p in outs)
+        assert np.array_equal(x0, x1)
+        assert np.linalg.norm(A @ x1 - b) / np.linalg.norm(b) <= 1e-10
+
+
+@pytest.mark.parametrize("npgrid", ["1", "4"])
+def test_cli_memplan_matches_jax(workflow, npgrid, capsys):
+    """--memplan at f64 prints the JAX driver's lines for the same -n (on
+    the CPU under x64 the JAX driver sizes float64 factors)."""
+    mat, _, _ = workflow
+    assert jax_solve.main(["--memplan", "-n", npgrid, mat]) == 0
+    want = capsys.readouterr().out
+    assert solve.main(["--memplan", "-n", npgrid, "--prec", "f64",
+                       mat]) == 0
+    got = capsys.readouterr().out
+    assert got == want and "float64 factors" in got
+    assert f"({int(npgrid) ** 2} device(s)" in got
+
+
+@pytest.mark.parametrize("device,prec,dtype", [
+    ("cuda", "auto", "float32"), ("cpu", "auto", "float64"),
+    ("cuda", "f64", "float64")])
+def test_cli_memplan_dtype_touches_no_device(workflow, device, prec, dtype,
+                                             capsys):
+    """--memplan sizes at the --prec dtype (auto: f32 on cuda, f64 on cpu)
+    on the host alone: it runs for --device cuda with no card present."""
+    mat, _, _ = workflow
+    assert solve.main(["--memplan", "--device", device, "--prec", prec,
+                       mat]) == 0
+    assert f"{dtype} factors" in capsys.readouterr().out
