@@ -44,7 +44,18 @@ its hand-written CUDA kernels on the way:
    each round's peak held against memplan.engine_round_peaks;
    (d) stream_solve from that directory on the four tracers; (e) an
    offloading engine on the directory against a resident one, factors
-   equal. Every residual <= 1e-10.
+   equal. Every residual <= 1e-10;
+8. the Newton-Krylov outer loop (drivers.nk_loop.run_nk_loop) on the card
+   at gx3deep (100x116x60, POP's 3-degree grid at its 60 levels), f64, 4
+   RHS, 3 iterations of new values on the device, refactor and solve:
+   every residual <= 1e-10, K1 and K3 launched on every refactor as the
+   plans say, each refactor split into host passes and engine time, the
+   one-time costs, peak memory and each round's peak of a steady refactor
+   against memplan.engine_round_peaks; the value update on the card bit
+   for bit with the host's (also at tiny size with a W > 1 fold), the
+   stencil operator's matvec against the CSR product, and K1's and K3's
+   ms per gx3deep refactor beside their bounds (each round's first panel
+   bit for bit against the plain version).
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel results, and as its last line
@@ -84,6 +95,13 @@ KID = {"f64": "K1", "f32": "K2"}
 LU_BOUND = {"f64": 1e-12, "f32": 2e-3}
 GX3 = dict(imt=100, jmt=116, km=25)
 TINY = dict(imt=24, jmt=20, km=8)
+# POP's 3-degree grid at its real 60 levels, the NK loop's grid (phase 8)
+GX3DEEP = dict(imt=100, jmt=116, km=60)
+NK_ITERATIONS = 3
+# an option set whose value-update fold has W > 1 columns (the vmix dense
+# block sums duplicates)
+UPDATE_W2 = dict(adv_type="upwind3", hmix_type="isop_file",
+                 vmix_type="matrix_file")
 TRACERS = ("IAGE_CUR", "PO4_CUR", "DOP_CUR", "O2_CUR")
 # panel shapes (B, R, T, off): tests/test_pallas_kernels.py's cases, gx3
 # plan panels with B > 2, and tall panels that the kernel walks in column
@@ -227,6 +245,19 @@ def check_panel(ck, device, sfx, B, R, T, off, p_arr, tau, seed):
     return float((Pk - Pp).abs().max()), Pan
 
 
+def panel_shapes(plans) -> dict:
+    """{(B, R, T, off): [count, p_arr]} of every 128-column panel that one
+    factor over ``plans`` gives the panel kernel (rounds with B > 2)."""
+    shapes: dict = {}
+    for p in plans:
+        if p.B <= 2:
+            continue
+        for off in range(0, p.P, 128):
+            key = (p.B, p.P - off, min(128, p.P - off), off)
+            shapes.setdefault(key, [0, p.p_arr])[0] += 1
+    return shapes
+
+
 def library_panel(Pan):
     """torch.linalg.lu_factor_ex on the same (B, R, T) batch: with every
     row eligible and tau = 0 the same elimination (yardstick only)."""
@@ -262,13 +293,7 @@ def phase_panel(ck, device, plans, sfx: str) -> dict:
             f"perm and values bitwise equal, P A = L U to {bwd:.2e}")
     # one gx3 factor's worth of panels: every panel of every round with
     # B > 2, on random data with the round's own p_arr
-    shapes: dict = {}
-    for p in plans:
-        if p.B <= 2:
-            continue
-        for off in range(0, p.P, 128):
-            key = (p.B, p.P - off, min(128, p.P - off), off)
-            shapes.setdefault(key, [0, p.p_arr])[0] += 1
+    shapes = panel_shapes(plans)
     tot = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, library_ms=0.0,
                bound_ms=0.0)
     bound_by = set()
@@ -967,6 +992,280 @@ def phase_oocore(ck, device, work: Path, mat: str, tracer: str, sym,
     return stats
 
 
+# --------------------------------------------------------------------------
+# phase 8: the Newton-Krylov outer loop at gx3deep, f64
+# --------------------------------------------------------------------------
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors in ``obj`` (nested dicts, lists and tuples)."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v) for v in obj)
+    return 0
+
+
+def refactor_round_peaks(ck, fac, device) -> list:
+    """One steady refactor (same values) with each round's device peak
+    recorded: a window opens at each round's K3 launch and closes at the
+    next one (the last at the end of the refactor). The peaks count what
+    the engine's round walk holds: what was allocated before the refactor,
+    less the previous factors and the plan constants, is taken off."""
+    import torch
+    eng = fac.engine
+    outside = (torch.cuda.memory_allocated(device) - tensor_bytes(eng.factors)
+               - tensor_bytes(eng._consts))
+    peaks = []
+    real = ck.ell_assemble
+
+    def windowed(*a, **kw):
+        peaks.append(torch.cuda.max_memory_allocated(device) - outside)
+        torch.cuda.reset_peak_memory_stats(device)
+        return real(*a, **kw)
+    torch.cuda.reset_peak_memory_stats(device)
+    ck.ell_assemble = windowed
+    try:
+        fac.refactor()
+    finally:
+        ck.ell_assemble = real
+    peaks.append(torch.cuda.max_memory_allocated(device) - outside)
+    return peaks[1:]    # [0]: before round 0 (the old factors' release)
+
+
+def refactor_kernel_ms(ck, device, plans, nzval) -> dict:
+    """K1 and K3 (f64) on every shape one refactor over ``plans`` gives
+    them, timed as phase 3 times them (CUDA events over back-to-back
+    launches; random panels with each round's p_arr, the real values for
+    K3), with the plain version's and the library call's times, summed
+    over the refactor with each shape's bound. Each round's first
+    (tallest) panel is held bit for bit against the plain version first."""
+    import torch
+    k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, panels=0,
+              shapes_bitwise=0)
+    for i, ((B, R, T, off), (count, pa)) in enumerate(
+            sorted(panel_shapes(plans).items())):
+        p_arr = torch.from_numpy(pa).to(device)
+        if off == 0:
+            _, Pan = check_panel(ck, device, "f64", B, R, T, off, p_arr, 0.05,
+                                 300 + i)
+            k1["shapes_bitwise"] += 1
+        else:
+            g = torch.Generator(device=device).manual_seed(300 + i)
+            Pan = torch.randn((B, R, T), generator=g, dtype=torch.float64,
+                              device=device)
+        t = event_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05), 5)
+        k1["ms"] += count * t
+        k1["plain_ms"] += count * event_ms(
+            lambda: ck.pivoted_panel_plain(Pan, off, p_arr, 0.05), 1)
+        k1["library_ms"] += count * event_ms(lambda: library_panel(Pan), 3)
+        k1["bound_ms"] += count * panel_bound(B, R, T, "f64")[0]
+        k1["panels"] += count
+        del Pan
+    nz = np.zeros(len(nzval) + 1)
+    nz[:-1] = nzval
+    nzd = torch.from_numpy(nz).to(device)
+    k3 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+              rounds=len(plans))
+    for p in plans:
+        args = [torch.from_numpy(a).to(device=device, dtype=torch.int64)
+                for a in (p.a_col, p.a_csrc, p.a_pos, p.a_src)]
+        p_arr = torch.from_numpy(p.p_arr).to(device)
+        spill = bool((p.a_pos < p.N * p.N).any())
+        k3["ms"] += event_ms(lambda: ck.ell_assemble(nzd, *args, p_arr, p.N,
+                                                     p.P, spill), 3)
+        k3["plain_ms"] += event_ms(lambda: ck.ell_assemble_plain(
+            nzd, *args, p_arr, p.N, p.P, spill), 2)
+        k3["library_ms"] += event_ms(lambda: library_assemble(
+            nzd, args[0], args[1], p.B, p.N), 3)
+        k3["bound_ms"] += assemble_bound(p, len(nzval), "f64")[0]
+    return dict(K1=k1, K3=k3)
+
+
+def update_on_card(plan, stacked_host, c_host, device) -> None:
+    """plan.update(stacked * c) on the card against the host numpy update
+    of the same product: bit for bit."""
+    import torch
+    s = torch.from_numpy(stacked_host).to(device)
+    got = plan.update(s * torch.from_numpy(c_host).to(device)).cpu().numpy()
+    want = plan.update(stacked_host * c_host)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"update on the card differs from the host's "
+                             f"by {float(np.abs(got - want).max()):.3e}")
+
+
+def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
+    """drivers.nk_loop.run_nk_loop on the card at gx3deep, f64, 4 RHS."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import nk_loop
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid import (gen_ind_maps,
+                                                               load_grid)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        SparseMatrix)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops import (
+        AssemblyOptions, assemble_jacobian)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.assemble import to_csr
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.device_update import (
+        build_update_plan)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.fieldsource import (
+        FileFieldSource)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        StencilOperator)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        engine_round_peaks)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.testdata import (
+        make_circ_file)
+    gb = 1e9
+    d = work / "gx3deep"
+    d.mkdir()
+    t0 = time.perf_counter()
+    matrix, maps, circ = nk_loop.build_problem(GX3DEEP, str(d))
+    t_gen = time.perf_counter() - t0
+    B = np.random.default_rng(0).standard_normal((matrix.flat_len, 4))
+    say(f"phase 8 gx3deep problem {tuple(GX3DEEP.values())}: flat_len "
+        f"{matrix.flat_len}, nnz {matrix.nnz}, gen_A {t_gen:.2f} s")
+
+    # the loop, with each refactor's launches read around it
+    per_refactor = []
+    real_refactor = mf.MultifrontalFactorization.refactor
+
+    def counted(self, *a, **kw):
+        before = dict(ck.LAUNCHES)
+        real_refactor(self, *a, **kw)
+        per_refactor.append({k: ck.LAUNCHES[k] - before[k]
+                             for k in ck.LAUNCHES})
+    reset_counts(ck, device)
+    mf.MultifrontalFactorization.refactor = counted
+    try:
+        res = nk_loop.run_nk_loop(matrix, maps, circ, B, NK_ITERATIONS,
+                                  device=device)
+    finally:
+        mf.MultifrontalFactorization.refactor = real_refactor
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    fac = res.factorization
+    plans = fac.engine.plans
+    if len(per_refactor) != NK_ITERATIONS:
+        raise AssertionError(f"{len(per_refactor)} refactors, want "
+                             f"{NK_ITERATIONS}")
+    for it, got in enumerate(per_refactor, 1):
+        try:
+            expect_launches(got, plans, ("f64",))
+        except AssertionError as e:
+            raise AssertionError(f"NK iteration {it}: {e}") from None
+    per_factor = {k: v // (NK_ITERATIONS + 1) for k, v in launches.items()}
+    expect_launches(per_factor, plans, ("f64",))
+    if any(v % (NK_ITERATIONS + 1) for v in launches.values()):
+        raise AssertionError(f"launches {launches} are not one cold factor "
+                             f"and {NK_ITERATIONS} refactors")
+    fac.validate()
+    for r in res.rows:
+        split = r["refactor_split"]
+        lk = per_refactor[r["it"] - 1]
+        say(f"phase 8 NK iteration {r['it']}: assemble {r['assemble']:.4f} "
+            f"s, refactor {r['refactor']:.3f} s (engine {split['factor']:.3f}"
+            f" s; host: equilibrate {split['equilibrate']:.3f}, to_scipy "
+            f"{split['to_scipy']:.3f}, rebind {split['rebind']:.3f} s), "
+            f"solve {r['solve']:.3f} s, residual {r['residual']:.3e}, "
+            f"refiner {r['refiner']}; launches K1 "
+            f"{lk['pivoted_panel_f64']}, K3 {lk['ell_assemble_f64']} "
+            f"[{card}]")
+    for r in res.rows:
+        if not r["residual"] <= 1e-10:
+            raise AssertionError(f"NK iteration {r['it']}: residual "
+                                 f"{r['residual']:.3e} > 1e-10")
+
+    # the value update on the card, bit for bit with the host's, for each
+    # iteration's perturbation (the loop's own draws)
+    plan = res.plan
+    stacked = res.stacked0.cpu().numpy()
+    rng = np.random.default_rng(42)
+    for nz in res.nzvals:
+        c = 1.0 + 1e-3 * rng.standard_normal(plan.total)
+        if not np.array_equal(nz, plan.update(stacked * c)):
+            raise AssertionError("the loop's new values differ from the "
+                                 "host update's")
+        update_on_card(plan, stacked, c, device)
+    # and on a tiny option set whose fold has W > 1 columns
+    td = work / "update_w2"
+    td.mkdir()
+    tcirc = str(td / "circ.nc")
+    make_circ_file(tcirc, seed=7, **TINY)
+    tgrid = load_grid(tcirc)
+    tasm = assemble_jacobian(tgrid, AssemblyOptions(circ_fname=tcirc,
+                                                    **UPDATE_W2),
+                             FileFieldSource(tcirc), None,
+                             gen_ind_maps(np.asarray(tgrid.KMT), tgrid.km))
+    nzv, colind, rowptr = to_csr(tasm)
+    tplan = build_update_plan(tasm, SparseMatrix(
+        nzval=nzv, colind=colind, rowptr=rowptr, coupled_tracer_cnt=1))
+    if tplan.ell_src.shape[1] < 2:
+        raise AssertionError("the W > 1 option set folds one column")
+    update_on_card(tplan, tplan.stack_fields(tasm),
+                   1.0 + 1e-3 * np.random.default_rng(1).standard_normal(
+                       tplan.total), device)
+    say(f"phase 8 value update: card bit for bit with the host at gx3deep "
+        f"(W = {plan.ell_src.shape[1]}, {plan.total} stacked, {plan.nnz} "
+        f"nonzeros, {len(plan.layout)} fields) on all {NK_ITERATIONS} "
+        f"iterations, and at tiny {UPDATE_W2} (W = "
+        f"{tplan.ell_src.shape[1]})")
+
+    # the stencil operator's matvec against the CSR product
+    op = StencilOperator.from_assembly(res.asm, device)
+    x = np.random.default_rng(7).standard_normal(matrix.flat_len)
+    y = op.matvec_factory(maps)(torch.from_numpy(x).to(device)).cpu().numpy()
+    want = matrix.to_scipy() @ x
+    scale = float(np.abs(want).max())
+    err = float(np.abs(y - want).max())
+    np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-13 * scale)
+    del op
+    say(f"phase 8 stencil matvec gx3deep: max |y - A x| {err:.3e} (max |y| "
+        f"{scale:.3e}), within rtol 1e-12, atol 1e-13 max|y|")
+
+    # each round's peak of a steady refactor against the engine's plan
+    planned = engine_round_peaks(plans, 8, fac._fac_matrix.nnz,
+                                 fac.engine._pack_bs, factor_only=False)
+    peaks = refactor_round_peaks(ck, fac, device)
+    over = [m / p for m, p in zip(peaks, planned)]
+    if len(peaks) != len(plans) or max(over) > 1.0:
+        raise AssertionError(f"refactor round peaks over the memory plan's: "
+                             f"{[round(x, 3) for x in over]}")
+    kern = refactor_kernel_ms(ck, device, plans, fac._fac_matrix.nzval)
+    rounds = [(p.B, p.P, p.N) for p in plans]
+    stats = dict(
+        card=card, flat_len=matrix.flat_len, nnz=matrix.nnz,
+        rounds=len(plans), max_P=max(p.P for p in plans),
+        max_N=max(p.N for p in plans), gen_a_s=t_gen,
+        symbolic_s=res.symbolic_s, update_plan_s=res.update_plan_s,
+        cold_factor_s=res.cold_factor_s, cold_timings=res.cold_timings,
+        iterations=res.rows, launches_per_refactor=per_refactor,
+        launches=launches, peak_mem_gb=peak / gb,
+        round_peak_over_plan_max=max(over),
+        round_peak_gb_max=max(peaks) / gb, kernels_per_refactor=kern,
+        summary=nk_loop.summary(res, 4, "gx3deep"))
+    say(f"phase 8 gx3deep rounds (B, P, N): {rounds}")
+    say(f"phase 8 one-time: gen_A {t_gen:.2f} s, symbolic "
+        f"{res.symbolic_s:.2f} s, update plan {res.update_plan_s:.2f} s, "
+        f"cold factor {res.cold_factor_s:.2f} s; peak {peak / gb:.2f} GB; "
+        f"refactor round peaks over plan {min(over):.3f}-{max(over):.3f} "
+        f"(max {max(peaks) / gb:.2f} GB); K1 f64 {kern['K1']['ms']:.3f} ms "
+        f"per gx3deep refactor ({kern['K1']['panels']} panels, "
+        f"{kern['K1']['shapes_bitwise']} shapes bitwise equal, plain "
+        f"{kern['K1']['plain_ms']:.1f} ms, lu_factor_ex "
+        f"{kern['K1']['library_ms']:.3f} ms, bound "
+        f"{kern['K1']['bound_ms']:.4f} ms), K3 f64 {kern['K3']['ms']:.3f} "
+        f"ms ({kern['K3']['rounds']} rounds, plain "
+        f"{kern['K3']['plain_ms']:.3f} ms, index_put_ "
+        f"{kern['K3']['library_ms']:.3f} ms, bound "
+        f"{kern['K3']['bound_ms']:.4f} ms) [{card}]")
+    say("phase 8 NK loop gx3deep f64: " + json.dumps(stats, default=float))
+    return stats
+
+
+
 def main() -> int:
     if not (REPO / PKG).is_dir():
         raise SystemExit(f"chip_smoke: {PKG}/ not found next to this script "
@@ -1043,6 +1342,9 @@ def main() -> int:
         # phase 7: out of core at f64 on the phase-5 problem
         phase_oocore(ck, device, work, mat, tracer, sym, plans,
                      main_stats["f64"]["peak_mem_gb"])
+
+        # phase 8: the NK outer loop at gx3deep, f64, 4 RHS
+        phase_nk_loop(ck, device, work, card)
 
     kernels = []
     for sfx in DTYPES:

@@ -6,7 +6,8 @@ Backends, as in the JAX package's ``solver/api.py``:
                      ``iterative_refinement`` and ``residual_norm`` copied
                      from the reference's host code);
   * "multifrontal" - the port's multifrontal solver on a torch device, at
-                     float64 or float32 factors ("auto" picks it).
+                     float64 or float32 factors, or on the host engine
+                     (``impl="numpy"``) ("auto" picks it).
 """
 
 from __future__ import annotations
@@ -71,11 +72,13 @@ def residual_norm(matrix: SparseMatrix, x: np.ndarray, b: np.ndarray) -> float:
 
 
 def factor(matrix: SparseMatrix, backend: str = "auto",
-           device: str | torch.device = "cuda", precision="f64", **kwargs):
-    """Factor ``matrix`` with ``backend``; the multifrontal backend runs on
-    ``device`` with ``precision`` factors ("f64", "f32" or "auto") and
-    passes MultifrontalFactorization's other keyword arguments through
-    (among them the checkpoints: ``factor_checkpoint_dir``,
+           device: str | torch.device = "cuda", precision="f64",
+           impl: str = "torch", **kwargs):
+    """Factor ``matrix`` with ``backend``; the multifrontal backend runs
+    its ``impl`` engine ("torch" on ``device`` with ``precision`` factors,
+    "f64", "f32" or "auto"; or "numpy" on the host) and passes
+    MultifrontalFactorization's other keyword arguments through (among
+    them the checkpoints: ``factor_checkpoint_dir``,
     ``numeric_checkpoint``)."""
     if backend == "auto":
         backend = "multifrontal"
@@ -84,5 +87,6 @@ def factor(matrix: SparseMatrix, backend: str = "auto",
     if backend == "multifrontal":
         from .mf import MultifrontalFactorization
         return MultifrontalFactorization(matrix, device=device,
-                                         precision=precision, **kwargs)
+                                         precision=precision, impl=impl,
+                                         **kwargs)
     raise ValueError(f"unknown solver backend: {backend}")

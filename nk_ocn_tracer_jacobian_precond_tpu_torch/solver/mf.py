@@ -2,13 +2,15 @@
 solve per RHS batch, iterative refinement to direct-solver accuracy.
 
 The port of the JAX package's ``solver/mf.py::MultifrontalFactorization``
-on the torch engine (``mf_torch.TorchMultifrontal``). The Ruiz
-equilibration (``equilibrate``) and ``_rel_residuals`` are copies of the
-reference's host code, as is the symbolic analysis (``symbolic.py``).
-Every refined solve goes through the device refiner (``refine.py``,
-FGMRES-IR3), as the JAX facade's solves do under x64; when float32 factors
-leave the refiner hopeless, the facade refactors in float64 and solves
-again.
+on the torch engine (``mf_torch.TorchMultifrontal``, ``impl="torch"``) or
+the host engine (``mf_numpy.NumpyMultifrontal``, ``impl="numpy"``). The
+Ruiz equilibration (``equilibrate``) and ``_rel_residuals`` are copies of
+the reference's host code, as is the symbolic analysis (``symbolic.py``).
+Every refined solve on the torch engine goes through the device refiner
+(``refine.py``, FGMRES-IR3), as the JAX facade's solves do under x64; when
+float32 factors leave the refiner hopeless, the facade refactors in
+float64 and solves again. The host engine refines as the JAX facade's host
+branch does: plain refinement, then scipy GMRES-IR.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ import torch
 from ..device import resolve_device, resolve_precision
 from ..io.matrixfile import SparseMatrix
 from ..utils import dbg, timed
+from .api import iterative_refinement
 from .checkpoint import load_factors, save_factors
 from .memplan import plan_memory
+from .mf_numpy import NumpyMultifrontal
 from .mf_torch import TorchMultifrontal
 from .refine import DeviceRefiner
 from .symbolic import SymbolicFactorization, symbolic_from_matrix
@@ -120,9 +124,13 @@ class MultifrontalFactorization:
     """Factor ``matrix`` on ``device`` ("cuda" by default; "cpu" only when
     named) at ``precision`` ("f64" by default, "f32", or "auto": f32 on
     the card, f64 on the CPU) and solve it to a relative residual of
-    100 * refine_tol. With float32 factors, a solve whose refinement gives
-    up (raw preconditioner error above ``giveup``) refactors in float64
-    and solves again, unless ``escalate`` is False; ``escalation`` then
+    100 * refine_tol. ``impl="numpy"`` factors on the host instead
+    (float64, ``mf_numpy.NumpyMultifrontal``; ``device``, ``precision``,
+    escalation and checkpoints do not apply, and a ``numeric_checkpoint``
+    is neither read nor written, with a warning). With float32 factors, a
+    solve whose refinement gives up (raw preconditioner error above
+    ``giveup``) refactors in float64 and solves again, unless
+    ``escalate`` is False; ``escalation`` then
     records the float32 attempt (its max relative residual and refiner
     stats). ``factor_checkpoint_dir`` gives the engine per-round factor
     checkpoints there (mf_torch.TorchMultifrontal: resume, offload).
@@ -131,7 +139,8 @@ class MultifrontalFactorization:
     exists and matches the matrix (its factors cast to the engine's dtype),
     else written after factoring. ``timings`` holds the seconds of each
     phase of the last factorization (symbolic, equilibrate, plan, factor or
-    load_factors; escalate once escalated)."""
+    load_factors; escalate once escalated; to_scipy and rebind after a
+    refactor with new values)."""
 
     def __init__(self, matrix: SparseMatrix, leaf_size: int = 32,
                  refine_tol: float = 1e-13, maps=None,
@@ -139,9 +148,12 @@ class MultifrontalFactorization:
                  device: str | torch.device = "cuda", precision="f64",
                  escalate: bool = True, giveup: float = 0.25,
                  factor_checkpoint_dir: str | None = None,
-                 numeric_checkpoint: str | None = None):
-        self.device = resolve_device(device)
-        prec = resolve_precision(precision, self.device)
+                 numeric_checkpoint: str | None = None,
+                 impl: str = "torch"):
+        if impl not in ("torch", "numpy"):
+            raise ValueError(f"unknown multifrontal impl: {impl}")
+        self.impl = impl
+        self.device = resolve_device(device) if impl == "torch" else None
         self.matrix = matrix
         self.A = matrix.to_scipy()
         self.refine_tol = refine_tol
@@ -164,6 +176,19 @@ class MultifrontalFactorization:
         with timed("equilibration"):
             self._fac_matrix, self.dr, self.dc = equilibrate(matrix)
         self.timings["equilibrate"] = time.perf_counter() - t0
+        if impl == "numpy":
+            if numeric_checkpoint is not None:
+                warnings.warn(
+                    "numeric_checkpoint (--factors) is only supported by the "
+                    "torch engine; the numpy engine will factor from scratch "
+                    "and NOT save/load the file", RuntimeWarning,
+                    stacklevel=2)
+            t0 = time.perf_counter()
+            with timed("numeric factorization (numpy)"):
+                self.engine = NumpyMultifrontal(sym, self._fac_matrix)
+            self.timings["factor"] = time.perf_counter() - t0
+            return
+        prec = resolve_precision(precision, self.device)
         loadable = (numeric_checkpoint is not None
                     and os.path.exists(numeric_checkpoint))
         with timed("numeric factorization (torch)"):
@@ -197,23 +222,41 @@ class MultifrontalFactorization:
         """Numeric refactorization with the same sparsity pattern (new
         Jacobian values each Newton iteration), at the engine's current
         precision. The old factors are freed before the new ones are
-        built; the refiner keeps its memo and takes the new values."""
+        built; the refiner keeps its memo and takes the new values. With a
+        new matrix, ``timings`` splits the host passes (to_scipy,
+        equilibrate, the refiner's rebind) from the engine's factor."""
         if matrix is not None:
+            t0 = time.perf_counter()
             self.matrix = matrix
             self.A = matrix.to_scipy()
+            t1 = time.perf_counter()
             self._fac_matrix, self.dr, self.dc = equilibrate(matrix)
+            t2 = time.perf_counter()
             if self._refiner is not None:
                 self._refiner.rebind(self.matrix, dr=self.dr, dc=self.dc)
+            self.timings.update(to_scipy=t1 - t0, equilibrate=t2 - t1,
+                                rebind=time.perf_counter() - t2)
+        t0 = time.perf_counter()
         with timed("numeric refactorization"):
-            self.engine.refactor(self._fac_matrix)
-        self.timings["factor"] = self.engine.timings["factor"]
+            if self.impl == "numpy":
+                self.engine._factorize(self._fac_matrix)
+            else:
+                self.engine.refactor(self._fac_matrix)
+        self.timings["factor"] = (time.perf_counter() - t0
+                                  if self.impl == "numpy"
+                                  else self.engine.timings["factor"])
 
     def validate(self) -> dict:
         """Raise FloatingPointError if any factor entry is not finite (a
         singular pivot block or overflow); else report the entry counts."""
         bad = 0
         total = 0
-        for item in self.engine.factors or ():
+        factors = self.engine.factors or ()
+        if isinstance(factors, dict):       # NumpyMultifrontal: FrontFactors
+            factors = [tuple(torch.from_numpy(a) for a in (f.lu11, f.L21,
+                                                           f.U12))
+                       for f in factors.values()]
+        for item in factors:
             for t in item:
                 if t.is_floating_point():
                     bad += int((~torch.isfinite(t)).sum())
@@ -287,6 +330,9 @@ class MultifrontalFactorization:
             with timed("mf solve"):
                 X = self._precond_solve(B)
             return X[:, 0] if single else X
+        if self.impl == "numpy":
+            X = self._host_refined_solve(B)
+            return X[:, 0] if single else X
         X = self._device_refiner().solve(B)
         rel = _rel_residuals(self.A, X, B)
         if (rel.max() > 100 * self.refine_tol
@@ -298,3 +344,44 @@ class MultifrontalFactorization:
                           f"residual {rel.max():.3e}", RuntimeWarning,
                           stacklevel=2)
         return X[:, 0] if single else X
+
+    def _host_refined_solve(self, B: np.ndarray) -> np.ndarray:
+        """The JAX facade's host branch (its solve without x64): plain
+        refinement, then scipy GMRES-IR with the factorization as the
+        preconditioner and a plain-refinement polish, warning if the
+        target is still missed."""
+        with timed("mf solve"):
+            X = self._precond_solve(B)
+        with timed("mf refine"):
+            X = iterative_refinement(self.A, self._precond_solve, B, X,
+                                     tol=self.refine_tol)
+        rel = _rel_residuals(self.A, X, B)
+        if rel.max() > 100 * self.refine_tol:
+            with timed("mf gmres-ir"):
+                X = self._gmres_ir(B, X)
+                X = iterative_refinement(self.A, self._precond_solve, B, X,
+                                         tol=self.refine_tol)
+            rel = _rel_residuals(self.A, X, B)
+            if rel.max() > 100 * self.refine_tol:
+                warnings.warn(
+                    f"solve did not reach target accuracy: max relative "
+                    f"residual {rel.max():.3e} > "
+                    f"{100 * self.refine_tol:.1e} after GMRES-IR "
+                    f"(ill-conditioned matrix or factorization breakdown)",
+                    RuntimeWarning, stacklevel=3)
+        return X
+
+    def _gmres_ir(self, B: np.ndarray, X0: np.ndarray) -> np.ndarray:
+        from scipy.sparse.linalg import LinearOperator, gmres
+        n = self.A.shape[0]
+        M = LinearOperator((n, n), matvec=lambda v: self._precond_solve(v))
+        X = np.empty_like(X0)
+        for j in range(B.shape[1]):
+            x, info = gmres(self.A, B[:, j], x0=X0[:, j], M=M,
+                            rtol=self.refine_tol, restart=30, maxiter=20)
+            X[:, j] = x
+            if info != 0:
+                warnings.warn(f"gmres-ir did not converge for rhs {j} "
+                              f"(info={info})", RuntimeWarning, stacklevel=2)
+            dbg(1, f"gmres-ir rhs {j}: info={info}")
+        return X

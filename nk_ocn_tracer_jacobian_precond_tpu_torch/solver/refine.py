@@ -19,6 +19,14 @@ corrections run on the engine's device, batched over all right-hand sides:
   cycles stall far from the target at full depth (m: ``M_START`` doubling
   to ``M_MAX`` first).
 
+When polishing stalls within 10x of the target, the residual is computed
+again in extended precision (numpy's long double) and polishing goes on
+with extended-precision residuals while it still halves the residual:
+near the target the float64 SpMV's own rounding, up to
+eps * || |A| |x| || / ||b||, can exceed the target (4.8e-10 against the NK
+loop's 1e-10 for one right-hand side at gx3deep), and a stall there is
+that noise, not the attainable floor.
+
 A raw preconditioner error above ``giveup`` after the first correction
 ends the refinement at once: no Krylov tier repairs an O(1)-wrong float32
 factorization, and the facade's escalation to float64 factors is the
@@ -112,6 +120,7 @@ class DeviceRefiner:
         equilibration scalings."""
         n = self.n
         self.A = matrix.to_scipy()
+        self._A_ext = None      # A in extended precision, made on first use
         rowptr = self._rowptr
         rowlen = np.diff(rowptr)
         E = int(rowlen.max()) if n else 0
@@ -140,6 +149,17 @@ class DeviceRefiner:
             raise ValueError("rebind requires the identical sparsity "
                              "pattern (new pattern => new DeviceRefiner)")
         self._bind_matrix(matrix, dr, dc)
+
+    def _host_residual(self, B: np.ndarray, X: np.ndarray,
+                       extended: bool) -> np.ndarray:
+        """B - A X on the host, in float64 or (``extended``) accumulated in
+        long double and rounded to float64 once."""
+        if not extended:
+            return B - self.A @ X
+        if self._A_ext is None:
+            self._A_ext = self.A.astype(np.longdouble)
+        R = B.astype(np.longdouble) - self._A_ext @ X.astype(np.longdouble)
+        return R.astype(np.float64)
 
     # -- device building blocks ---------------------------------------------
 
@@ -228,6 +248,7 @@ class DeviceRefiner:
         prev = np.inf
         stall = 0
         fused_stalled = False
+        extended = False    # host residuals in extended precision
         Bd = None    # device copy of the RHS, staged once
         Xd = None    # device iterate equal to X (fused outers)
         X_best, rel_best = X, np.inf
@@ -235,7 +256,7 @@ class DeviceRefiner:
                      rels=[])
         with timed("refine (gmres-ir3)"):
             for outer in range(3 * MAX_CYCLES):
-                R = B - self.A @ X if X.any() else B
+                R = self._host_residual(B, X, extended) if X.any() else B
                 rel = float((np.linalg.norm(R, axis=0) / bnorm).max())
                 stats["outers"] = outer + 1
                 stats["rels"].append(rel)
@@ -279,10 +300,26 @@ class DeviceRefiner:
                     # progressing by under ~1.5 digits a cycle: deepen
                     self._m = min(2 * self._m, M_MAX)
                     dbg(1, f"refine: deepening inner cycle to m={self._m}")
-                elif phase == "polish" and (rel > 0.5 * prev
-                                            or rel <= 3 * self.tol):
-                    dbg(1, "refine: converged to the attainable floor")
-                    break
+                elif phase == "polish" and rel > 0.5 * prev:
+                    # stalled: the attainable floor, unless it is the
+                    # float64 residual's own rounding. (The JAX refiner also
+                    # stops once within 3x of tol, which returns up to 3x
+                    # the target when tol is the contract itself, as in the
+                    # NK loop's 1e-10; here polishing goes on while a cycle
+                    # still halves the residual.)
+                    if extended or rel > 10 * self.tol:
+                        dbg(1, "refine: converged to the attainable floor")
+                        break
+                    extended = True
+                    R = self._host_residual(B, X, True)
+                    rel = float((np.linalg.norm(R, axis=0) / bnorm).max())
+                    stats["rels"].append(rel)
+                    dbg(1, f"refine: polish stalled within 10x of tol; "
+                           f"extended-precision residual {rel:.3e}")
+                    if rel < rel_best:
+                        rel_best, X_best = rel, X.copy()
+                    if rel <= self.tol:
+                        break
                 elif phase == "gmres64":
                     stall = stall + 1 if rel > 0.7 * prev else 0
                     if stall >= 2:

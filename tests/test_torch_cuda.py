@@ -275,3 +275,64 @@ def test_offload_on_card_equals_resident(card, problem, tmp_path):
     assert ck.LAUNCHES["ell_assemble_f64"] == before
     for a, b in zip(again.factors, eng.factors, strict=True):
         assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def _assembly(d, **kw):
+    """An assembly of the port's stage 1 at 14x10x5 (seed 9, as
+    tests/test_device_update.py), with its canonical matrix and maps."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid import (gen_ind_maps,
+                                                               load_grid)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        SparseMatrix)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops import (
+        assemble_jacobian)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.assemble import to_csr
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.fieldsource import (
+        FileFieldSource)
+    circ = str(d / "circ.nc")
+    make_circ_file(circ, imt=14, jmt=10, km=5, seed=9)
+    grid = load_grid(circ)
+    maps = gen_ind_maps(np.asarray(grid.KMT), grid.km)
+    asm = assemble_jacobian(grid, AssemblyOptions(circ_fname=circ, **kw),
+                            FileFieldSource(circ), None, maps)
+    nzval, colind, rowptr = to_csr(asm)
+    return asm, SparseMatrix(nzval=nzval, colind=colind, rowptr=rowptr,
+                             coupled_tracer_cnt=1), maps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vmix", ["file", "matrix_file"])
+def test_update_on_card_equals_cpu(card, tmp_path, vmix):
+    """The value update (gather and left fold) on the card, bit for bit
+    with the CPU tensor path and the host numpy path, on bench's options
+    (W = 1) and on upwind3 + matrix_file vmix (W > 1)."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.device_update import (
+        build_update_plan)
+    asm, matrix, _ = _assembly(tmp_path, adv_type="upwind3",
+                               hmix_type="isop_file", vmix_type=vmix)
+    plan = build_update_plan(asm, matrix)
+    assert (plan.ell_src.shape[1] > 1) == (vmix == "matrix_file")
+    s = plan.stack_fields(asm) * (1.0 + 1e-3 * np.random.default_rng(
+        42).standard_normal(plan.total))
+    host = plan.update(s)
+    cpu = plan.update(torch.from_numpy(s))
+    dev = plan.update(torch.from_numpy(s).to(card))
+    assert dev.device.type == "cuda"
+    assert torch.equal(dev.cpu(), cpu)
+    np.testing.assert_array_equal(cpu.numpy(), host)
+
+
+@pytest.mark.cuda
+def test_stencil_matvec_on_card_matches_csr(card, tmp_path):
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        StencilOperator)
+    asm, matrix, maps = _assembly(tmp_path, adv_type="upwind3",
+                                  hmix_type="isop_file",
+                                  vmix_type="matrix_file")
+    op = StencilOperator.from_assembly(asm)
+    assert op.device.type == "cuda"
+    x = np.random.default_rng(7).standard_normal(matrix.flat_len)
+    y = op.matvec_factory(maps)(torch.from_numpy(x).to(card)).cpu().numpy()
+    want = matrix.to_scipy() @ x
+    np.testing.assert_allclose(y, want, rtol=1e-12,
+                               atol=1e-13 * np.abs(want).max())

@@ -303,3 +303,82 @@ def test_packages_are_distinct():
     assert matrixfile.SparseMatrix is not ref_mfile.SparseMatrix
     assert not ref_pkg.__file__.startswith(
         os.path.dirname(port_pkg.__file__))
+
+
+def test_ncdiff_exit_codes_equal(inputs, tmp_path, capsys):
+    """The port's ncdiff (over its own netcdf3 reader) against the JAX
+    package's: the same exit code and report on equal files (0), files
+    whose values differ (1), and mismatched files (2: a variable missing
+    or of another shape), with and without a tolerance."""
+    from nk_ocn_tracer_jacobian_precond_tpu.drivers import ncdiff as ref_ncd
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import ncdiff
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io import fields
+    (_, tracer), _ = inputs
+    same = str(tmp_path / "same.nc")
+    synthetic.make_tracer_file(
+        same, IMT, JMT, KM, tracer_names=("IAGE_CUR",),
+        sink_field_names=("my_sink_rate",),
+        generic_tracer_names=("PO4", "DIC"),
+        coupled_names=(("OCMIP_BGC_PO4", "OCMIP_BGC_DOP"),
+                       ("OCMIP_BGC_DOP", "OCMIP_BGC_PO4")),
+        pv_names=("pv_a", "pv_b"), seed=4)
+    changed = str(tmp_path / "changed.nc")
+    synthetic.make_tracer_file(changed, IMT, JMT, KM,
+                               tracer_names=("IAGE_CUR",), seed=4)
+    f3 = fields.get_var_double(changed, "IAGE_CUR", 3)
+    fields.put_var_inplace(changed, "IAGE_CUR", f3 * (1 + 1e-9))
+    other = str(tmp_path / "other.nc")
+    synthetic.make_tracer_file(other, IMT + 1, JMT, KM,
+                               tracer_names=("IAGE_CUR",), seed=4)
+    cases = [(tracer, same, None, {}), (tracer, changed, None, {}),
+             (tracer, changed, ["IAGE_CUR"], dict(rtol=1e-6)),
+             (tracer, other, ["IAGE_CUR"], {}),
+             (tracer, changed, ["IAGE_CUR", "NOPE"], {})]
+    codes = []
+    for a, b, names, kw in cases:
+        want = ref_ncd.diff_files(a, b, names, **kw)
+        want_out = capsys.readouterr().out
+        got = ncdiff.diff_files(a, b, names, **kw)
+        assert (got, capsys.readouterr().out) == (want, want_out)
+        codes.append(got)
+    assert codes == [0, 1, 0, 2, 2]
+    assert ncdiff.main(["-q", "-v", "IAGE_CUR", tracer, changed]) == 1
+
+
+def test_phase_stats_report_equal():
+    """PhaseStats counts, reports and serializes as the JAX package's."""
+    from nk_ocn_tracer_jacobian_precond_tpu.utils import profiling as ref_prof
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.utils import profiling
+    st, ref = profiling.PhaseStats(), ref_prof.PhaseStats()
+    for name in ("a", "b", "a"):
+        with st.phase(name):
+            pass
+        with ref.phase(name):
+            pass
+    for s in (st, ref):
+        s.seconds.update(a=1.25, b=0.5)
+    assert st.report() == ref.report()
+    assert st.to_json() == ref.to_json()
+    assert dict(st.calls) == dict(ref.calls) == {"a": 2, "b": 1}
+    assert isinstance(profiling.GLOBAL_STATS, profiling.PhaseStats)
+
+
+def test_torch_trace_writes_a_trace(tmp_path):
+    """torch_trace on the CPU (named) writes one Chrome trace holding the
+    block's operators, also when the block raises."""
+    import json
+
+    import torch
+
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.utils import profiling
+    with profiling.torch_trace(str(tmp_path / "t"), "cpu") as prof:
+        torch.ones(64, dtype=torch.float64).cumsum(0)
+    assert any("cumsum" in e.key for e in prof.key_averages())
+    files = list((tmp_path / "t").iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json"
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("cumsum" in e.get("name", "") for e in events)
+    with pytest.raises(RuntimeError, match="inside"):
+        with profiling.torch_trace(str(tmp_path / "u"), "cpu"):
+            raise RuntimeError("inside")
+    assert len(list((tmp_path / "u").iterdir())) == 1
