@@ -54,8 +54,21 @@ its hand-written CUDA kernels on the way:
    against memplan.engine_round_peaks; the value update on the card bit
    for bit with the host's (also at tiny size with a W > 1 fold), the
    stencil operator's matvec against the CSR product, and K1's and K3's
-   ms per gx3deep refactor beside their bounds (each round's first panel
-   bit for bit against the plain version).
+   ms per gx3deep refactor beside their bounds (every panel shape and
+   every round's fronts bit for bit against the plain versions);
+9. the factor-and-solve bench (drivers.bench.main, bench.py's main path)
+   at gx3, f64, on the card, with its cache in this run's temporary
+   directory, so scipy's SuperLU baseline is measured on this host: every
+   residual <= 1e-10 (the port's and the baseline's), K1 and K3-f64
+   launched as the plans say on the cold factor and the refactor, the
+   bench's JSON line and the phase's seconds; then K1 and K3-f64 at this
+   path's own (leaf 16) shapes bit for bit against their plain versions,
+   with their ms per bench factor beside the plain, library and bound ms;
+10. an NCCL process group of one rank (parallel.mesh.init_process_group)
+   and make_mesh(1): the one-band sharded stencil apply on phase 8's
+   gx3deep assembly bit for bit with the single-device apply. The machine
+   has one card, so no halo crosses ranks here (the multi-rank exchange
+   is tested on gloo on the CPU).
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel results, and as its last line
@@ -98,6 +111,8 @@ TINY = dict(imt=24, jmt=20, km=8)
 # POP's 3-degree grid at its real 60 levels, the NK loop's grid (phase 8)
 GX3DEEP = dict(imt=100, jmt=116, km=60)
 NK_ITERATIONS = 3
+# the bench size of phase 9 (the scipy baseline is measured there)
+BENCH_SIZE = "gx3"
 # an option set whose value-update fold has W > 1 columns (the vmix dense
 # block sums duplicates)
 UPDATE_W2 = dict(adv_type="upwind3", hmix_type="isop_file",
@@ -1040,22 +1055,17 @@ def refactor_kernel_ms(ck, device, plans, nzval) -> dict:
     them, timed as phase 3 times them (CUDA events over back-to-back
     launches; random panels with each round's p_arr, the real values for
     K3), with the plain version's and the library call's times, summed
-    over the refactor with each shape's bound. Each round's first
-    (tallest) panel is held bit for bit against the plain version first."""
+    over the refactor with each shape's bound. Every panel shape and every
+    round's fronts are held bit for bit against the plain version first."""
     import torch
     k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, panels=0,
               shapes_bitwise=0)
     for i, ((B, R, T, off), (count, pa)) in enumerate(
             sorted(panel_shapes(plans).items())):
         p_arr = torch.from_numpy(pa).to(device)
-        if off == 0:
-            _, Pan = check_panel(ck, device, "f64", B, R, T, off, p_arr, 0.05,
-                                 300 + i)
-            k1["shapes_bitwise"] += 1
-        else:
-            g = torch.Generator(device=device).manual_seed(300 + i)
-            Pan = torch.randn((B, R, T), generator=g, dtype=torch.float64,
-                              device=device)
+        _, Pan = check_panel(ck, device, "f64", B, R, T, off, p_arr, 0.05,
+                             300 + i)
+        k1["shapes_bitwise"] += 1
         t = event_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05), 5)
         k1["ms"] += count * t
         k1["plain_ms"] += count * event_ms(
@@ -1069,11 +1079,16 @@ def refactor_kernel_ms(ck, device, plans, nzval) -> dict:
     nzd = torch.from_numpy(nz).to(device)
     k3 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
               rounds=len(plans))
-    for p in plans:
+    for rnd, p in enumerate(plans):
         args = [torch.from_numpy(a).to(device=device, dtype=torch.int64)
                 for a in (p.a_col, p.a_csrc, p.a_pos, p.a_src)]
         p_arr = torch.from_numpy(p.p_arr).to(device)
         spill = bool((p.a_pos < p.N * p.N).any())
+        if not torch.equal(
+                ck.ell_assemble(nzd, *args, p_arr, p.N, p.P, spill),
+                ck.ell_assemble_plain(nzd, *args, p_arr, p.N, p.P, spill)):
+            raise AssertionError(f"K3 f64 round {rnd} {(p.B, p.P, p.N)}: "
+                                 f"fronts differ from the plain version")
         k3["ms"] += event_ms(lambda: ck.ell_assemble(nzd, *args, p_arr, p.N,
                                                      p.P, spill), 3)
         k3["plain_ms"] += event_ms(lambda: ck.ell_assemble_plain(
@@ -1257,11 +1272,134 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         f"{kern['K1']['plain_ms']:.1f} ms, lu_factor_ex "
         f"{kern['K1']['library_ms']:.3f} ms, bound "
         f"{kern['K1']['bound_ms']:.4f} ms), K3 f64 {kern['K3']['ms']:.3f} "
-        f"ms ({kern['K3']['rounds']} rounds, plain "
+        f"ms ({kern['K3']['rounds']} rounds bitwise equal, plain "
         f"{kern['K3']['plain_ms']:.3f} ms, index_put_ "
         f"{kern['K3']['library_ms']:.3f} ms, bound "
         f"{kern['K3']['bound_ms']:.4f} ms) [{card}]")
     say("phase 8 NK loop gx3deep f64: " + json.dumps(stats, default=float))
+    return stats, res.asm
+
+
+# --------------------------------------------------------------------------
+# phase 9: the factor-and-solve bench against scipy SuperLU on this host
+# --------------------------------------------------------------------------
+
+def phase_bench(ck, device, work: Path, card: str) -> dict:
+    """drivers.bench.main at BENCH_SIZE, f64, on the card, with a fresh
+    scipy baseline; its JSON line, checked."""
+    import contextlib
+    import io
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import (bench,
+                                                                  nk_loop)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.plan import (
+        build_plan)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.symbolic import (
+        symbolic_from_matrix)
+    cache = work / "bench"
+    out = io.StringIO()
+    reset_counts(ck, device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--size", BENCH_SIZE, "--prec", "f64", "--cache",
+                         str(cache)])
+    t_phase = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0:
+        raise AssertionError(f"bench exited {rc}")
+    for key in ("residual", "baseline_residual"):
+        if not line[key] <= 1e-10:
+            raise AssertionError(f"bench {key} {line[key]:.3e} > 1e-10")
+    if "NOT MET" in line["metric"] or line["escalated"] is not None:
+        raise AssertionError(f"bench line: {line['metric']}, escalated "
+                             f"{line['escalated']}")
+    if line["device"] != torch.cuda.get_device_name(device):
+        raise AssertionError(f"bench ran on {line['device']}")
+    # the cold factor and the steady refactor, each as the plans say (the
+    # problem files are in the cache; the plans do not depend on values)
+    matrix, maps, _ = nk_loop.build_problem(nk_loop.SIZES[BENCH_SIZE],
+                                            str(cache))
+    plans = build_plan(symbolic_from_matrix(maps, matrix, leaf_size=16),
+                       matrix, batch_multiple=1)
+    if any(v % 2 for v in launches.values()):
+        raise AssertionError(f"launches {launches} are not two factors")
+    expect_launches({k: v // 2 for k, v in launches.items()}, plans,
+                    ("f64",))
+    # K1 and K3 (f64) at this path's own shapes (leaf 16), bit for bit
+    # with their plain versions, timed per bench factor
+    kern = refactor_kernel_ms(ck, device, plans, matrix.nzval)
+    k1, k3 = kern["K1"], kern["K3"]
+    say(f"phase 9 per bench factor ({BENCH_SIZE}, leaf 16): K1 f64 "
+        f"{k1['ms']:.3f} ms ({k1['panels']} panels, {k1['shapes_bitwise']} "
+        f"shapes bitwise equal, plain {k1['plain_ms']:.1f} ms, lu_factor_ex "
+        f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms), K3 f64 "
+        f"{k3['ms']:.3f} ms ({k3['rounds']} rounds bitwise equal, plain "
+        f"{k3['plain_ms']:.3f} ms, index_put_ {k3['library_ms']:.3f} ms, "
+        f"bound {k3['bound_ms']:.4f} ms) [{card}]")
+    say(f"phase 9 bench {BENCH_SIZE} f64: {t_phase:.1f} s in all; factor "
+        f"{line['factor_s']:.4f} s, solve {line['solve_s']:.4f} s, cold "
+        f"factor {line['cold_factor_s']:.3f} s, cold solve "
+        f"{line['cold_solve_s']:.3f} s, symbolic {line['symbolic_s']:.3f} "
+        f"s, residual {line['residual']:.3e}, peak "
+        f"{line['peak_mem_gb']:.2f} GB; scipy SuperLU factor "
+        f"{line['baseline_factor_s']:.2f} s, solve "
+        f"{line['baseline_solve_s']:.3f} s, residual "
+        f"{line['baseline_residual']:.3e} on {line['baseline_host']}; "
+        f"vs_baseline {line['vs_baseline']:.2f}; launches K1 "
+        f"{launches['pivoted_panel_f64']}, K3 "
+        f"{launches['ell_assemble_f64']} over 2 factors [{card}]")
+    say("phase 9 bench line: " + json.dumps(line))
+    return dict(line=line, launches=launches, phase_s=t_phase,
+                kernels_per_factor=kern)
+
+
+# --------------------------------------------------------------------------
+# phase 10: an NCCL world of one, the sharded stencil apply
+# --------------------------------------------------------------------------
+
+def phase_mesh(device, work: Path, asm, card: str) -> dict:
+    """init_process_group("cuda", 0, 1) and make_mesh(1): an all-reduce
+    on the card, and the one-band sharded apply of ``asm``'s operator bit
+    for bit with its apply, both timed."""
+    import torch
+    import torch.distributed as dist
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        StencilOperator, init_process_group, make_mesh)
+    dev = init_process_group(device, 0, 1, str(work / "nccl_store"))
+    try:
+        backend = dist.get_backend()
+        t = torch.full((4,), 2.0, device=dev)
+        dist.all_reduce(t)
+        if backend != "nccl" or not bool((t == 2.0).all()):
+            raise AssertionError(f"{backend} all-reduce of one rank: "
+                                 f"{t.tolist()}")
+        op = StencilOperator.from_assembly(asm, dev)
+        mesh = make_mesh(1)
+        apply_fn, layout, pad_field, unpad_field = op.sharded_apply_factory(
+            mesh)
+        km, jmt, imt = op.shape
+        wet = np.arange(km)[:, None, None] < np.asarray(asm.grid.KMT)[None]
+        x = np.where(wet, np.random.default_rng(8).standard_normal(
+            (km, jmt, imt)), 0.0)[None].repeat(op.nt, 0)
+        x = torch.from_numpy(x).to(dev)
+        x_l = layout.scatter(pad_field(x))
+        y = unpad_field(layout.gather(apply_fn(x_l)))
+        want = op.apply(x)
+        if not torch.equal(y, want):
+            raise AssertionError(
+                f"one-band sharded apply differs from apply by "
+                f"{float((y - want).abs().max()):.3e}")
+        stats = dict(backend=backend, mesh_shape=mesh.shape,
+                     shape=op.shape, nt=op.nt, offsets=len(op.offsets),
+                     sharded_ms=median_ms(lambda: apply_fn(x_l), dev, 5),
+                     apply_ms=median_ms(lambda: op.apply(x), dev, 5))
+    finally:
+        dist.destroy_process_group()
+    say(f"phase 10 NCCL world of one, make_mesh(1): sharded apply on the "
+        f"gx3deep assembly {op.shape} bit for bit with apply; "
+        f"{stats['sharded_ms']:.3f} ms against {stats['apply_ms']:.3f} ms "
+        f"(median of 5) [{card}]")
     return stats
 
 
@@ -1344,7 +1482,14 @@ def main() -> int:
                      main_stats["f64"]["peak_mem_gb"])
 
         # phase 8: the NK outer loop at gx3deep, f64, 4 RHS
-        phase_nk_loop(ck, device, work, card)
+        _, deep_asm = phase_nk_loop(ck, device, work, card)
+
+        # phase 9: the factor-and-solve bench against scipy on this host
+        phase_bench(ck, device, work, card)
+
+        # phase 10: an NCCL world of one, the sharded stencil apply
+        phase_mesh(device, work, deep_asm, card)
+        del deep_asm
 
     kernels = []
     for sfx in DTYPES:

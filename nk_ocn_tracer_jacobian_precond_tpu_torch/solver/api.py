@@ -78,8 +78,8 @@ def factor(matrix: SparseMatrix, backend: str = "auto",
     its ``impl`` engine ("torch" on ``device`` with ``precision`` factors,
     "f64", "f32" or "auto"; or "numpy" on the host) and passes
     MultifrontalFactorization's other keyword arguments through (among
-    them the checkpoints: ``factor_checkpoint_dir``,
-    ``numeric_checkpoint``)."""
+    them ``equilibrate_matrix`` and the checkpoints:
+    ``factor_checkpoint_dir``, ``numeric_checkpoint``)."""
     if backend == "auto":
         backend = "multifrontal"
     if backend == "scipy":

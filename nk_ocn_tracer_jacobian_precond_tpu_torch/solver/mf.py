@@ -127,9 +127,11 @@ class MultifrontalFactorization:
     100 * refine_tol. ``impl="numpy"`` factors on the host instead
     (float64, ``mf_numpy.NumpyMultifrontal``; ``device``, ``precision``,
     escalation and checkpoints do not apply, and a ``numeric_checkpoint``
-    is neither read nor written, with a warning). With float32 factors, a
-    solve whose refinement gives up (raw preconditioner error above
-    ``giveup``) refactors in float64 and solves again, unless
+    is neither read nor written, with a warning). ``equilibrate_matrix``
+    False factors the matrix as it is: no Ruiz scaling, ``dr`` and ``dc``
+    None, and ``refactor`` scales no new values either. With float32
+    factors, a solve whose refinement gives up (raw preconditioner error
+    above ``giveup``) refactors in float64 and solves again, unless
     ``escalate`` is False; ``escalation`` then
     records the float32 attempt (its max relative residual and refiner
     stats). ``factor_checkpoint_dir`` gives the engine per-round factor
@@ -149,7 +151,7 @@ class MultifrontalFactorization:
                  escalate: bool = True, giveup: float = 0.25,
                  factor_checkpoint_dir: str | None = None,
                  numeric_checkpoint: str | None = None,
-                 impl: str = "torch"):
+                 impl: str = "torch", equilibrate_matrix: bool = True):
         if impl not in ("torch", "numpy"):
             raise ValueError(f"unknown multifrontal impl: {impl}")
         self.impl = impl
@@ -172,9 +174,10 @@ class MultifrontalFactorization:
                 sym = symbolic_from_matrix(maps, matrix, leaf_size=leaf_size)
             self.timings["symbolic"] = time.perf_counter() - t0
         self.sym = sym
+        self.equilibrate_matrix = equilibrate_matrix
         t0 = time.perf_counter()
         with timed("equilibration"):
-            self._fac_matrix, self.dr, self.dc = equilibrate(matrix)
+            self._fac_matrix, self.dr, self.dc = self._scaled(matrix)
         self.timings["equilibrate"] = time.perf_counter() - t0
         if impl == "numpy":
             if numeric_checkpoint is not None:
@@ -201,6 +204,14 @@ class MultifrontalFactorization:
             save_factors(numeric_checkpoint, self)
             dbg(1, f"numeric factors saved to {numeric_checkpoint}")
         self.timings.update(self.engine.timings)
+
+    def _scaled(self, matrix: SparseMatrix):
+        """(the matrix the engine factors, dr, dc): the Ruiz-equilibrated
+        matrix with its scalings, or ``matrix`` itself and None, None when
+        ``equilibrate_matrix`` is False."""
+        if not self.equilibrate_matrix:
+            return matrix, None, None
+        return equilibrate(matrix)
 
     def _load_factors(self, path: str) -> bool:
         """Load the factor file at ``path``; when it is rejected (stale
@@ -230,7 +241,7 @@ class MultifrontalFactorization:
             self.matrix = matrix
             self.A = matrix.to_scipy()
             t1 = time.perf_counter()
-            self._fac_matrix, self.dr, self.dc = equilibrate(matrix)
+            self._fac_matrix, self.dr, self.dc = self._scaled(matrix)
             t2 = time.perf_counter()
             if self._refiner is not None:
                 self._refiner.rebind(self.matrix, dr=self.dr, dc=self.dc)

@@ -336,3 +336,49 @@ def test_stencil_matvec_on_card_matches_csr(card, tmp_path):
     want = matrix.to_scipy() @ x
     np.testing.assert_allclose(y, want, rtol=1e-12,
                                atol=1e-13 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_bench_main_on_card(card, tmp_path, capsys):
+    """The factor-and-solve bench at tiny on the card: bench's JSON line,
+    residuals within the contract, K1 and K3 launched, the card's peak."""
+    import json
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import bench
+    before = dict(ck.LAUNCHES)
+    assert bench.main(["--size", "tiny", "--cache", str(tmp_path)]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["residual"] <= 1e-10 and out["baseline_residual"] <= 1e-10
+    assert out["device"] == torch.cuda.get_device_name(card)
+    assert out["peak_mem_gb"] > 0 and out["escalated"] is None
+    assert out["value"] == out["factor_s"] + out["solve_s"]
+    for k in ("pivoted_panel_f64", "ell_assemble_f64"):
+        assert ck.LAUNCHES[k] > before[k], k
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_sharded_apply(card, tmp_path):
+    """An NCCL group of one rank: an all-reduce runs on the card, and the
+    one-band sharded apply of make_mesh(1) is ``apply`` bit for bit."""
+    import torch.distributed as dist
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        StencilOperator, init_process_group, make_mesh)
+    asm, matrix, maps = _assembly(tmp_path, adv_type="upwind3",
+                                  hmix_type="isop_file", vmix_type="file")
+    dev = init_process_group("cuda", 0, 1, str(tmp_path / "store"))
+    try:
+        assert dist.get_backend() == "nccl" and dev.type == "cuda"
+        t = torch.ones(3, device=dev)
+        dist.all_reduce(t)
+        assert torch.equal(t.cpu(), torch.ones(3))
+        op = StencilOperator.from_assembly(asm, dev)
+        mesh = make_mesh(1)
+        apply_fn, layout, pad_field, unpad_field = op.sharded_apply_factory(
+            mesh)
+        x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+            (op.nt,) + op.shape)).to(dev)
+        y = unpad_field(layout.gather(apply_fn(layout.scatter(
+            pad_field(x)))))
+        assert y.device.type == "cuda"
+        assert torch.equal(y, op.apply(x))
+    finally:
+        dist.destroy_process_group()

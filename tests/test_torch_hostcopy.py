@@ -12,6 +12,7 @@ bit-equal scalings.
 import dataclasses
 import filecmp
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -125,24 +126,26 @@ def test_gen_a_cli_option_file(inputs, tmp_path):
     assert filecmp.cmp(want, got, shallow=False)
 
 
-def _assert_same(a, b, where="."):
+def _assert_same(a, b, where=".", equal_nan=False):
     """Field-by-field equality of two trees of dataclasses, dicts, lists
-    and arrays (the classes themselves differ: one per package)."""
+    and arrays (the classes themselves differ: one per package); with
+    ``equal_nan``, NaNs in the same places of float arrays are equal."""
     if dataclasses.is_dataclass(a):
         assert type(a).__name__ == type(b).__name__, where
         for f in dataclasses.fields(a):
             _assert_same(getattr(a, f.name), getattr(b, f.name),
-                         f"{where}.{f.name}")
+                         f"{where}.{f.name}", equal_nan)
     elif isinstance(a, dict):
         assert list(a) == list(b), where
         for k in a:
-            _assert_same(a[k], b[k], f"{where}[{k!r}]")
+            _assert_same(a[k], b[k], f"{where}[{k!r}]", equal_nan)
     elif isinstance(a, (list, tuple)):
         assert len(a) == len(b), where
         for i, (x, y) in enumerate(zip(a, b)):
-            _assert_same(x, y, f"{where}[{i}]")
+            _assert_same(x, y, f"{where}[{i}]", equal_nan)
     elif isinstance(a, np.ndarray):
-        assert a.dtype == b.dtype and np.array_equal(a, b), where
+        assert a.dtype == b.dtype and np.array_equal(
+            a, b, equal_nan=equal_nan and a.dtype.kind == "f"), where
     else:
         assert type(a) is type(b) and a == b, (where, a, b)
 
@@ -382,3 +385,26 @@ def test_torch_trace_writes_a_trace(tmp_path):
         with profiling.torch_trace(str(tmp_path / "u"), "cpu"):
             raise RuntimeError("inside")
     assert len(list((tmp_path / "u").iterdir())) == 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(imt=16, jmt=12, km=5, seed=42, adv_type="upwind3",
+         hmix_type="isop_file", vmix_type="file")])
+def test_demo_assembly_equal(kw):
+    """parallel/demo.py's make_demo_assembly, called with the same
+    arguments in both packages: equal assemblies and equal index maps."""
+    from nk_ocn_tracer_jacobian_precond_tpu.parallel import demo as ref_demo
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import demo
+    asm_r, maps_r = ref_demo.make_demo_assembly(**kw)
+    asm_p, maps_p = demo.make_demo_assembly(**kw)
+    # each call writes its circulation file into a temporary directory of
+    # its own: the paths differ, the files do not
+    circ_r, circ_p = asm_r.opts.circ_fname, asm_p.opts.circ_fname
+    assert filecmp.cmp(circ_r, circ_p, shallow=False)
+    for c in (circ_r, circ_p):
+        shutil.rmtree(os.path.dirname(c))
+    asm_p.opts = dataclasses.replace(asm_p.opts, circ_fname=circ_r)
+    # the dense coefficient fields hold NaN on land in both
+    _assert_same(asm_r, asm_p, equal_nan=True)
+    _assert_same(maps_r, maps_p)

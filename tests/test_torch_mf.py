@@ -321,3 +321,92 @@ def test_facade_needs_maps_or_sym(fixture_pair):
     matrix, _, _, _ = fixture_pair
     with pytest.raises(ValueError, match="index maps"):
         MultifrontalFactorization(matrix, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def raw_pair(fixture_pair):
+    """The 20x16x6 fixture factored by both facades without Ruiz scaling
+    (equilibrate_matrix=False), on one symbolic analysis."""
+    matrix, maps, tf, _ = fixture_pair
+    raw = MultifrontalFactorization(matrix, maps=maps, sym=tf.sym,
+                                    device="cpu", equilibrate_matrix=False)
+    jraw = JaxFactorization(matrix, impl="jax", maps=maps, sym=tf.sym,
+                            equilibrate_matrix=False)
+    return matrix, raw, jraw
+
+
+@pytest.mark.parametrize("nrhs", [1, 2, 4])
+def test_unequilibrated_solve_matches_jax(raw_pair, nrhs):
+    """equilibrate_matrix=False through both facades: the raw matrix is
+    factored (no dr, dc) and the refined solutions agree to 1e-12, as the
+    equilibrated ones do (test_solve_matches_jax)."""
+    matrix, raw, jraw = raw_pair
+    assert raw.dr is None and raw.dc is None and jraw.dr is None
+    assert raw._fac_matrix is matrix
+    B = np.random.default_rng(nrhs).standard_normal((matrix.flat_len, nrhs))
+    X = raw.solve(B)
+    assert _rel(X, np.asarray(jraw.solve(B))) <= 1e-12
+    A = matrix.to_scipy()
+    res = np.linalg.norm(A @ X - B, axis=0) / np.linalg.norm(B, axis=0)
+    assert res.max() < 1e-11, res
+
+
+def test_unequilibrated_refactor_skips_ruiz(fixture_pair, monkeypatch):
+    """A refactor with equilibrate_matrix=False never calls equilibrate,
+    with new values or without, and its solve meets the contract."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        SparseMatrix)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import api, mf
+    matrix, maps, tf, _ = fixture_pair
+
+    def refuse(*a, **kw):
+        raise AssertionError("equilibrate called")
+    monkeypatch.setattr(mf, "equilibrate", refuse)
+    fac = api.factor(matrix, maps=maps, sym=tf.sym, device="cpu",
+                     equilibrate_matrix=False)
+    B = np.random.default_rng(9).standard_normal((matrix.flat_len, 2))
+    fac.solve(B)
+    new = SparseMatrix(nzval=matrix.nzval * 1.5, colind=matrix.colind,
+                       rowptr=matrix.rowptr,
+                       coupled_tracer_cnt=matrix.coupled_tracer_cnt)
+    fac.refactor(new)
+    assert fac._fac_matrix is new and fac.dr is None and fac.dc is None
+    fac.refactor()
+    X = fac.solve(B)
+    A = new.to_scipy()
+    res = np.linalg.norm(A @ X - B, axis=0) / np.linalg.norm(B, axis=0)
+    assert res.max() < 1e-11, res
+    with pytest.raises(AssertionError, match="equilibrate called"):
+        MultifrontalFactorization(matrix, maps=maps, sym=tf.sym,
+                                  device="cpu")
+
+
+def test_validate_detects_a_singular_matrix(tmp_path):
+    """tests/test_observability.py's fixture through the port: validate()
+    passes on the factored matrix and raises FloatingPointError on an
+    all-zero one factored without equilibration."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.gen_a import (
+        run_gen_a as port_gen_a)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        load_ind_maps as port_maps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        SparseMatrix, read_matrix_file as port_read)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.ops import (
+        AssemblyOptions as PortOptions, PerTracerOptions as PortPerTracer)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.testdata import (
+        make_circ_file as port_circ)
+    circ, mat = str(tmp_path / "c.nc"), str(tmp_path / "m.nc")
+    port_circ(circ, imt=12, jmt=10, km=4, seed=70)
+    pt = PortPerTracer(sink_type="const", sink_rate=1e-4)
+    port_gen_a(mat, opts=PortOptions(circ_fname=circ, hmix_type="const",
+                                     vmix_type="file", per_tracer=[pt]))
+    matrix, maps = port_read(mat), port_maps(mat)
+    fac = MultifrontalFactorization(matrix, maps=maps, device="cpu")
+    assert fac.validate()["nonfinite_factor_entries"] == 0
+    sing = SparseMatrix(nzval=np.zeros_like(matrix.nzval),
+                        colind=matrix.colind, rowptr=matrix.rowptr,
+                        coupled_tracer_cnt=matrix.coupled_tracer_cnt)
+    fac2 = MultifrontalFactorization(sing, maps=maps, sym=fac.sym,
+                                     device="cpu", equilibrate_matrix=False)
+    with pytest.raises(FloatingPointError):
+        fac2.validate()

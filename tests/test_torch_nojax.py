@@ -19,7 +19,7 @@ REPO = Path(__file__).resolve().parents[1]
 PKG = "nk_ocn_tracer_jacobian_precond_tpu_torch"
 REF = "nk_ocn_tracer_jacobian_precond_tpu"
 
-SCRIPT = textwrap.dedent("""
+BLOCKER = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     def blocked(name):
@@ -36,12 +36,17 @@ SCRIPT = textwrap.dedent("""
     import numpy as np
     import torch
     torch.set_num_threads(1)    # the suite runs several workers at once
+""")
+
+SCRIPT = (BLOCKER + textwrap.dedent("""
     import {pkg}
     mods = [m.name for m in pkgutil.walk_packages({pkg}.__path__,
                                                   "{pkg}.")]
     for m in mods:
         importlib.import_module(m)
     assert len(mods) >= 30, mods
+    for m in ("drivers.bench", "parallel.mesh", "parallel.demo"):
+        assert "{pkg}." + m in mods, m
 
     from {pkg}.drivers.gen_a import run_gen_a
     from {pkg}.grid.indmap import load_ind_maps
@@ -67,7 +72,32 @@ SCRIPT = textwrap.dedent("""
     assert res < 1e-10, res
     assert not [m for m in sys.modules if blocked(m)]
     print("NOJAX_OK", len(mods), res)
-""").replace("{pkg}", PKG).replace("{ref}", REF)
+""")).replace("{pkg}", PKG).replace("{ref}", REF)
+
+# the bench driver at tiny on the CPU, and the mesh and the demo assembly
+# under one band, with jax and the JAX package blocked
+DRIVERS_SCRIPT = (BLOCKER + textwrap.dedent("""
+    import contextlib, io, json
+    from {pkg}.drivers import bench
+    from {pkg}.parallel import StencilOperator, make_mesh
+    from {pkg}.parallel.demo import make_demo_assembly
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert bench.main(["--size", "tiny", "--device", "cpu", "--cache",
+                           "cache", "--nrhs", "1"]) == 0
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert line["residual"] <= 1e-10, line
+    asm, maps = make_demo_assembly()
+    op = StencilOperator.from_assembly(asm, "cpu")
+    apply_fn, layout, pad_field, unpad_field = op.sharded_apply_factory(
+        make_mesh())
+    x = torch.ones((op.nt,) + op.shape, dtype=torch.float64)
+    y = unpad_field(layout.gather(apply_fn(layout.scatter(pad_field(x)))))
+    assert torch.equal(y, op.apply(x))
+    assert not [m for m in sys.modules if blocked(m)]
+    print("NOJAX_DRIVERS_OK", line["residual"])
+""")).replace("{pkg}", PKG).replace("{ref}", REF)
 
 
 def test_port_runs_without_jax(tmp_path):
@@ -77,6 +107,15 @@ def test_port_runs_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "NOJAX_OK" in res.stdout
+
+
+def test_bench_and_mesh_run_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", DRIVERS_SCRIPT],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "NOJAX_DRIVERS_OK" in res.stdout
 
 
 def _imported_modules(path: Path, package: list[str]):
