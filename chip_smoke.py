@@ -68,10 +68,29 @@ its hand-written CUDA kernels on the way:
    and make_mesh(1): the one-band sharded stencil apply on phase 8's
    gx3deep assembly bit for bit with the single-device apply. The machine
    has one card, so no halo crosses ranks here (the multi-rank exchange
-   is tested on gloo on the CPU).
+   is tested on gloo on the CPU);
+11. the mesh engine: (a) the facade with mesh=make_mesh(1, ("front",)) in
+   an NCCL group of one at gx3deep (leaf 16, f64, 4 RHS), every round
+   through K1 (the tree-top rounds of at most two fronts too, which the
+   single-device engine gives the library LU; no library LU call) and
+   K3, residuals and solutions against the single-device facade's,
+   steady factor and solve beside the single-device ones, a synchronized
+   breakdown of each, the peak against plan_memory(plans, 1, 8), K1 bit
+   for bit and timed at the tree-top shapes and K3 on every round of the
+   mesh engine's plan; (b) a gloo world
+   of 2 ranks that share the card, gx3 at leaf 32 (batch-sharded rounds
+   and the root row-sharded with the masked substitution): each rank's
+   launches as the plan gives, its resident factor bytes equal to the
+   plan's, the same bits on both ranks, solutions against the mesh of
+   one; (c) a gloo world of 4 ranks as a 2 x rhs 2 mesh at tiny, the rhs
+   split against the mesh of one; (d) the dry run's main on a gloo world
+   of 2 on the card (its sharded stencil on the card too, the halos going
+   through the host). (b)-(d) go through the host: their times are not a
+   distribution speed.
 
 Prints one line per phase, the card's name and power limit, one JSON line
-of kernel results, and as its last line
+of kernel results (K1 and K3-f64 twice: the gx3 main path, and the mesh
+path of phase 11a), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises: the script then exits non-zero without that line.
 
@@ -82,6 +101,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1074,6 +1094,14 @@ def refactor_kernel_ms(ck, device, plans, nzval) -> dict:
         k1["bound_ms"] += count * panel_bound(B, R, T, "f64")[0]
         k1["panels"] += count
         del Pan
+    return dict(K1=k1, K3=assemble_kernel_ms(ck, device, plans, nzval))
+
+
+def assemble_kernel_ms(ck, device, plans, nzval) -> dict:
+    """K3 (f64) on every round of ``plans`` with the real values, held bit
+    for bit against its plain version, then timed as phase 3 times it with
+    the plain, library and bound times, summed over one factor."""
+    import torch
     nz = np.zeros(len(nzval) + 1)
     nz[:-1] = nzval
     nzd = torch.from_numpy(nz).to(device)
@@ -1096,7 +1124,7 @@ def refactor_kernel_ms(ck, device, plans, nzval) -> dict:
         k3["library_ms"] += event_ms(lambda: library_assemble(
             nzd, args[0], args[1], p.B, p.N), 3)
         k3["bound_ms"] += assemble_bound(p, len(nzval), "f64")[0]
-    return dict(K1=k1, K3=k3)
+    return k3
 
 
 def update_on_card(plan, stacked_host, c_host, device) -> None:
@@ -1403,6 +1431,347 @@ def phase_mesh(device, work: Path, asm, card: str) -> dict:
     return stats
 
 
+# --------------------------------------------------------------------------
+# phase 11: the mesh engine (an NCCL world of one, gloo worlds on the card)
+# --------------------------------------------------------------------------
+
+def mesh_kernel_ms(ck, device, plans, nzval) -> dict:
+    """K1 on every panel of the rounds with B <= 2 (which the mesh engine
+    factors with the panel kernel where the single-device engine takes
+    the library LU), with the tallest panel and whether the kernel walked
+    it in column slabs, and K3 on every round of the mesh engine's
+    ``plans``; each held bit for bit against its plain version, then
+    timed as phase 3 times them, with the plain, library and bound times,
+    summed over one factor."""
+    import torch
+    k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, panels=0,
+              tallest_R=0, slab=False)
+    for p in plans:
+        if p.B > 2:
+            continue
+        p_arr = torch.from_numpy(p.p_arr).to(device)
+        for off in range(0, p.P, 128):
+            B, R, T = p.B, p.P - off, min(128, p.P - off)
+            _, Pan = check_panel(ck, device, "f64", B, R, T, off, p_arr,
+                                 0.05, 400 + k1["panels"])
+            k1["ms"] += event_ms(lambda: ck.pivoted_panel(Pan, off, p_arr,
+                                                          0.05), 5)
+            k1["plain_ms"] += event_ms(
+                lambda: ck.pivoted_panel_plain(Pan, off, p_arr, 0.05), 1)
+            k1["library_ms"] += event_ms(lambda: library_panel(Pan), 3)
+            k1["bound_ms"] += panel_bound(B, R, T, "f64")[0]
+            k1["panels"] += 1
+            if R > k1["tallest_R"]:
+                k1["tallest_R"] = R
+                k1["slab"] = ck.panel_launch_config(
+                    B, R, T, 8, ck.active_clusters)[1] < T
+            del Pan
+    return dict(K1=k1, K3=assemble_kernel_ms(ck, device, plans, nzval))
+
+
+def max_rel(A, X, B) -> float:
+    return float((np.linalg.norm(A @ X - B, axis=0)
+                  / np.linalg.norm(B, axis=0)).max())
+
+
+def solutions_agree(X, X1, what: str) -> float:
+    """max |X - X1| over max |X1|, required <= 1e-9 (tests/test_dist_cli's
+    rtol, taken over the largest entry)."""
+    d = float(np.abs(X - X1).max() / np.abs(X1).max())
+    if not d <= 1e-9:
+        raise AssertionError(f"{what}: solutions differ by {d:.3e} of the "
+                             f"largest entry")
+    return d
+
+
+def phase_mesh_of_one(ck, device, work: Path, card: str,
+                      deep_k1: dict) -> dict:
+    """(a) The facade with mesh=make_mesh(1, ("front",)) in an NCCL group
+    of one rank, at gx3deep (phase 8's problem, leaf 16), f64, 4 RHS,
+    against the single-device facade on the same right-hand sides.
+    ``deep_k1`` is phase 8's K1 per gx3deep refactor (its B > 2 panels,
+    the same shapes as here)."""
+    import torch
+    import torch.distributed as dist
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import nk_loop
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        init_process_group, make_mesh)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf_torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        plan_memory)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    matrix, maps, _ = nk_loop.build_problem(GX3DEEP, str(work / "gx3deep"))
+    A = matrix.to_scipy()
+    B = np.random.default_rng(0).standard_normal((matrix.flat_len, 4))
+    # the single-device facade: its solutions and steady factor
+    reset_counts(ck, device)
+    one = MultifrontalFactorization(matrix, maps=maps, leaf_size=16,
+                                    device=device)
+    X1 = one.solve(B)
+    t0 = time.perf_counter()
+    one.refactor()
+    single_steady = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one.solve(B)
+    single_solve = time.perf_counter() - t0
+    single_stages = stage_breakdown(one, device)
+    sym = one.sym
+    del one
+    torch.cuda.empty_cache()
+
+    dev = init_process_group(device, 0, 1, str(work / "nccl_store_11"))
+    small = []
+    real_small = mf_torch.partial_factor_small_batch
+    mf_torch.partial_factor_small_batch = (
+        lambda *a, **k: small.append(1) or real_small(*a, **k))
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        # the mesh path: counts from 0 just before it, read just after
+        reset_counts(ck, dev)
+        t0 = time.perf_counter()
+        fac = MultifrontalFactorization(matrix, maps=maps, sym=sym,
+                                        leaf_size=16, device=dev,
+                                        mesh=make_mesh(1, ("front",)))
+        t_cold = time.perf_counter() - t0
+        X = fac.solve(B)
+        launches = dict(ck.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        eng = fac.engine
+        plans = eng.plans
+        want_k1 = sum(math.ceil(p.P / 128) for p in plans)
+        treetop = [(p.B, p.P, p.N) for p in plans if p.B <= 2]
+        if (launches["pivoted_panel_f64"] != want_k1
+                or launches["ell_assemble_f64"] != len(plans)
+                or launches["pivoted_panel_f32"]
+                or launches["ell_assemble_f32"]):
+            raise AssertionError(f"mesh of one: launches {launches}, want "
+                                 f"K1 {want_k1} and K3 {len(plans)}")
+        if small or not treetop:
+            raise AssertionError(f"mesh of one: {len(small)} library LU "
+                                 f"calls, tree-top rounds {treetop}")
+        rel = max_rel(A, X, B)
+        if not rel <= 1e-10:
+            raise AssertionError(f"mesh of one residual {rel:.3e}")
+        agree = solutions_agree(X, X1, "mesh of one against one device")
+        t0 = time.perf_counter()
+        fac.refactor()
+        t_steady = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        X = fac.solve(B)
+        t_solve = time.perf_counter() - t0
+        rel_steady = max_rel(A, X, B)
+        if not rel_steady <= 1e-10:
+            raise AssertionError(f"mesh of one steady residual "
+                                 f"{rel_steady:.3e}")
+        planned = plan_memory(plans, 1, 8).peak_per_device
+        stages = stage_breakdown(fac, dev)
+        kern = mesh_kernel_ms(ck, dev, plans, fac._fac_matrix.nzval)
+    finally:
+        mf_torch.partial_factor_small_batch = real_small
+        dist.destroy_process_group()
+    k1, k3 = kern["K1"], kern["K3"]
+    per_factor = {key: deep_k1[key] + k1[key]
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    stats = dict(card=card, treetop_rounds=treetop, launches=launches,
+                 tallest_panel_R=k1["tallest_R"], slab_path=k1["slab"],
+                 cold_facade_s=t_cold, steady_factor_s=t_steady,
+                 single_device_steady_factor_s=single_steady,
+                 solve_4rhs_s=t_solve,
+                 single_device_solve_4rhs_s=single_solve,
+                 breakdown=stages, single_device_breakdown=single_stages,
+                 residual=rel,
+                 steady_residual=rel_steady, solutions_diff=agree,
+                 peak_mem_gb=peak / 1e9,
+                 plan_peak_gb=planned / 1e9, mesh_kernels=kern,
+                 k1_per_factor=per_factor,
+                 single_device_k1_ms=deep_k1["ms"])
+    say(f"phase 11a NCCL world of one, make_mesh(1, ('front',)), gx3deep "
+        f"f64 leaf 16, 4 RHS: tree-top rounds (B, P, N) {treetop} through "
+        f"K1 ({k1['panels']} panels, tallest R {k1['tallest_R']}, column "
+        f"slabs {k1['slab']}), no library LU; launches K1 "
+        f"{launches['pivoted_panel_f64']}, K3 {launches['ell_assemble_f64']}"
+        f" per factor; residual {rel:.3e} (steady {rel_steady:.3e}), "
+        f"solutions {agree:.2e} of the largest entry from the single-device "
+        f"facade's [{card}]")
+    say(f"phase 11a times: cold facade {t_cold:.2f} s, steady factor "
+        f"{t_steady:.4f} s (single-device {single_steady:.4f} s), 4-RHS "
+        f"solve {t_solve:.4f} s (single-device {single_solve:.4f} s); peak "
+        f"{peak / 1e9:.2f} GB against "
+        f"plan_memory(plans, 1, 8) {planned / 1e9:.2f} GB; K1 per factor "
+        f"{per_factor['ms']:.3f} ms (tree-top {k1['ms']:.3f} ms over "
+        f"{k1['panels']} panels; single-device engine {deep_k1['ms']:.3f} "
+        f"ms), bound {per_factor['bound_ms']:.4f} ms, lu_factor_ex "
+        f"{per_factor['library_ms']:.3f} ms, plain "
+        f"{per_factor['plain_ms']:.1f} ms; K3 f64 per factor "
+        f"{k3['ms']:.3f} ms ({k3['rounds']} rounds bitwise equal, plain "
+        f"{k3['plain_ms']:.3f} ms, index_put_ {k3['library_ms']:.3f} ms, "
+        f"bound {k3['bound_ms']:.4f} ms) [{card}]")
+    say(f"phase 11a synchronized refactor, exclusive ms: mesh of one "
+        f"{stages['synced_refactor_ms']:.1f} {stages['stages_ms']}; "
+        f"single device {single_stages['synced_refactor_ms']:.1f} "
+        f"{single_stages['stages_ms']} [{card}]")
+    return stats
+
+
+def mesh_world_rank(dev, mat: str, rhs_devices: int, leaf: int,
+                    out_dir: str) -> None:
+    """One rank of a gloo world whose ranks share the card
+    (parallel.mesh.run_world): the facade with n_devices = the world's
+    size (and ``rhs_devices``) on ``mat``, 4 RHS; writes what it saw to
+    out_dir/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        load_ind_maps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
+        cuda_kernels as ck)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        plan_memory)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    matrix, maps = read_matrix_file(mat), load_ind_maps(mat)
+    B = np.random.default_rng(0).standard_normal((matrix.flat_len, 4))
+    t0 = time.perf_counter()
+    fac = MultifrontalFactorization(matrix, maps=maps, leaf_size=leaf,
+                                    device=dev,
+                                    n_devices=dist.get_world_size(),
+                                    rhs_devices=rhs_devices)
+    t_cold = time.perf_counter() - t0
+    X = fac.solve(B)
+    launches = dict(ck.LAUNCHES)
+    eng = fac.engine
+    t0 = time.perf_counter()
+    fac.refactor()
+    t_steady = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fac.solve(B)
+    t_solve = time.perf_counter() - t0
+    out = dict(
+        X=X, launches=launches, cold_s=t_cold, steady_s=t_steady,
+        solve_s=t_solve, stats=fac._refiner.stats,
+        plans=[(p.B, p.P, p.N, p.M) for p in eng.plans],
+        layouts=[(lay.kind, lay.masked, lay.border) for lay in eng.layouts],
+        resident=eng.resident_factor_bytes(),
+        planned=plan_memory(eng.plans, eng.ndev, 8,
+                            row_shard_min=eng.row_shard_min
+                            ).factor_bytes_per_device,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        mesh=(fac.mesh.axis_names, fac.mesh.shape, fac.mesh.coords))
+    torch.save(out, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+
+
+def gloo_world(world: int, work: Path, name: str, *args) -> list:
+    """mesh_world_rank on ``world`` gloo ranks that share the card; their
+    results."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import run_world
+    out_dir = work / name
+    out_dir.mkdir()
+    run_world(mesh_world_rank, world, "cuda", *args, str(out_dir),
+              backend="gloo")
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def phase_gloo_worlds(ck, device, work: Path, mat: str, card: str) -> dict:
+    """(b) 2 gloo ranks on the card at gx3 (leaf 32), (c) 4 gloo ranks as a
+    2 x rhs 2 mesh at tiny, each against the mesh of one in this process
+    (no process group), and (d) the dry run's main on 2 gloo ranks."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        load_ind_maps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        dryrun, make_mesh)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    say("phase 11 (b)-(d): the ranks of each world share this one card and "
+        "their collectives go through the host (gloo), so their times are "
+        "not a distribution speed")
+    stats = {}
+    tiny_dir = work / "tiny_11"
+    tiny_dir.mkdir()
+    tiny, _ = make_problem(tiny_dir, TINY)
+    for tag, world, path, rhs, leaf in (("b", 2, mat, 1, 32),
+                                        ("c", 4, tiny, 2, 32)):
+        matrix, maps = read_matrix_file(path), load_ind_maps(path)
+        A = matrix.to_scipy()
+        B = np.random.default_rng(0).standard_normal((matrix.flat_len, 4))
+        one = MultifrontalFactorization(matrix, maps=maps, leaf_size=leaf,
+                                        device=device,
+                                        mesh=make_mesh(1, ("front",)))
+        X1 = one.solve(B)
+        del one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = gloo_world(world, work, f"world_{tag}", path, rhs, leaf)
+        t_world = time.perf_counter() - t0
+        r0 = ranks[0]
+        plans = r0["plans"]
+        want_k1 = sum(math.ceil(P / 128) for _, P, _, _ in plans)
+        for rank, r in enumerate(ranks):
+            if not np.array_equal(r["X"], r0["X"]) or r["stats"] != r0["stats"]:
+                raise AssertionError(f"world {tag}: rank {rank} solved or "
+                                     f"refined otherwise than rank 0")
+            if (r["launches"]["pivoted_panel_f64"] != want_k1
+                    or r["launches"]["ell_assemble_f64"] != len(plans)):
+                raise AssertionError(f"world {tag} rank {rank}: launches "
+                                     f"{r['launches']}, want K1 {want_k1}, "
+                                     f"K3 {len(plans)}")
+            if r["resident"] != r["planned"]:
+                raise AssertionError(f"world {tag} rank {rank}: resident "
+                                     f"factor bytes {r['resident']}, plan "
+                                     f"{r['planned']}")
+        rel = max_rel(A, r0["X"], B)
+        if not rel <= 1e-10:
+            raise AssertionError(f"world {tag}: residual {rel:.3e}")
+        agree = solutions_agree(r0["X"], X1, f"world {tag} against the "
+                                "mesh of one")
+        kinds = [k for k, _, _ in r0["layouts"]]
+        front = r0["mesh"][1][0]
+        split = sum(1 for (k, _, _), p in zip(r0["layouts"], plans)
+                    if k == "batch" and p[0] % front == 0)
+        masked = sum(1 for k, m, _ in r0["layouts"] if k == "row" and m)
+        if tag == "b" and not (split and masked):
+            raise AssertionError(f"world b: {split} batch-sharded and "
+                                 f"{masked} masked row-sharded rounds")
+        if tag == "c" and r0["mesh"][:2] != (("front", "rhs"), (2, 2)):
+            raise AssertionError(f"world c mesh {r0['mesh']}")
+        stats[tag] = dict(
+            world=world, mesh=r0["mesh"][:2], kinds=kinds, residual=rel,
+            solutions_diff=agree,
+            launches=r0["launches"], resident_gb=[r["resident"] / 1e9
+                                                  for r in ranks],
+            cold_s=[r["cold_s"] for r in ranks],
+            steady_s=[r["steady_s"] for r in ranks],
+            solve_s=[r["solve_s"] for r in ranks],
+            peak_gb=[r["peak_gb"] for r in ranks], world_s=t_world)
+        say(f"phase 11{tag} gloo world of {world} on the card, mesh "
+            f"{r0['mesh'][1]}: rounds {kinds} ({split} batch-sharded, "
+            f"{masked} row-sharded masked); per rank K1 "
+            f"{r0['launches']['pivoted_panel_f64']} and K3 "
+            f"{r0['launches']['ell_assemble_f64']} launches, as the plan "
+            f"gives; resident factor bytes equal the plan's on every rank "
+            f"({[round(r['resident'] / 1e9, 4) for r in ranks]} GB); "
+            f"residual {rel:.3e}, solutions {agree:.2e} of the largest "
+            f"entry from the mesh of one's and bit for bit alike on every "
+            f"rank; cold "
+            f"{[round(r['cold_s'], 2) for r in ranks]} s, steady factor "
+            f"{[round(r['steady_s'], 3) for r in ranks]} s, solve "
+            f"{[round(r['solve_s'], 3) for r in ranks]} s, {t_world:.1f} s "
+            f"with the ranks' start (shared card, through the host) [{card}]")
+    t0 = time.perf_counter()
+    dryrun.main(["2", "--device", "cuda", "--backend", "gloo"])
+    stats["d"] = dict(seconds=time.perf_counter() - t0)
+    say(f"phase 11d dry run on a gloo world of 2 on the card: ok, "
+        f"{stats['d']['seconds']:.1f} s (shared card) [{card}]")
+    return stats
+
 
 def main() -> int:
     if not (REPO / PKG).is_dir():
@@ -1482,7 +1851,7 @@ def main() -> int:
                      main_stats["f64"]["peak_mem_gb"])
 
         # phase 8: the NK outer loop at gx3deep, f64, 4 RHS
-        _, deep_asm = phase_nk_loop(ck, device, work, card)
+        deep_stats, deep_asm = phase_nk_loop(ck, device, work, card)
 
         # phase 9: the factor-and-solve bench against scipy on this host
         phase_bench(ck, device, work, card)
@@ -1490,6 +1859,12 @@ def main() -> int:
         # phase 10: an NCCL world of one, the sharded stencil apply
         phase_mesh(device, work, deep_asm, card)
         del deep_asm
+
+        # phase 11: the mesh engine: (a) an NCCL world of one at gx3deep,
+        # (b)-(d) gloo worlds whose ranks share the card
+        mesh_one = phase_mesh_of_one(
+            ck, device, work, card, deep_stats["kernels_per_refactor"]["K1"])
+        phase_gloo_worlds(ck, device, work, mat, card)
 
     kernels = []
     for sfx in DTYPES:
@@ -1501,6 +1876,22 @@ def main() -> int:
             name=f"ell_assemble_{sfx}", route="cuda", source=ASM_SOURCE,
             replaces=ASM_REPLACES,
             launches=launches[sfx][f"ell_assemble_{sfx}"], **asm[sfx]))
+    # the mesh path of phase 11a: the same kernels, launched on every
+    # round (the tree-top ones included) of one gx3deep factor. K1's times
+    # add phase 8's B > 2 panels (the same shapes) to the tree-top panels
+    # timed in 11a; K3's are 11a's own, on the mesh engine's rounds
+    k3m = mesh_one["mesh_kernels"]["K3"]
+    kernels.append(dict(
+        name="pivoted_panel_f64", route="cuda", source=PANEL_SOURCE,
+        replaces=PANEL_REPLACES["f64"], path="gx3deep mesh of one",
+        launches=mesh_one["launches"]["pivoted_panel_f64"], max_abs_err=0.0,
+        bound_by="bytes", **mesh_one["k1_per_factor"]))
+    kernels.append(dict(
+        name="ell_assemble_f64", route="cuda", source=ASM_SOURCE,
+        replaces=ASM_REPLACES, path="gx3deep mesh of one",
+        launches=mesh_one["launches"]["ell_assemble_f64"], max_abs_err=0.0,
+        bound_by="bytes", **{k: k3m[k] for k in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms")}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

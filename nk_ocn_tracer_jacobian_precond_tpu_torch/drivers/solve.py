@@ -9,16 +9,25 @@ f32; or auto, f32 on the card), the explicit form of the JAX package's
 NK_PREC. ``--factors FILE`` loads the numeric factors from FILE when it
 matches the matrix (no numeric factorization) and writes them there
 otherwise. ``--memplan`` prints the memory plan of the factorization for
-``-n N`` devices at the ``--prec`` dtype and exits, on the host alone:
-the JAX driver's lines, whose transient model counts fused programs; the
-port's eager temporaries are counted per round by
-``memplan.engine_round_peaks``. The
-distributed options (``-n`` above 1 without ``--memplan``,
-``--rhs-devices``) are not yet ported: they exit with status 1.
+``-n``'s device count at the ``--prec`` dtype and exits, on the host
+alone: the JAX CLI's lines, whose transient model counts fused
+programs; the port's eager temporaries are counted per round by
+``memplan.engine_round_peaks``.
+
+``-n nprow[,npcol]`` (npcol defaults to nprow, as in the reference's
+solve_ABdist) runs the distributed mode on nprow * npcol ranks, which the
+CLI starts itself (torch.multiprocessing, meeting through a file store in
+a temporary directory): with ``--device cuda`` one rank per card over
+NCCL, exiting 1 with "requested N devices, have M" when there are fewer
+cards; with ``--device cpu`` gloo ranks. ``--rhs-devices r`` gives the
+mesh an "rhs" axis of r ranks (r divides the rank count), over which the
+right-hand-side columns of each solve split. Every rank reads the matrix
+file; the first alone reads and writes the tracer file.
 
 Run as ``python -m nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.solve
-[-D lvl] [--device cuda|cpu] [--prec f64|f32|auto] [--factors FILE]
--v VARS matrix.nc tracer.nc``, or with ``--memplan [-n N] matrix.nc``.
+[-D lvl] [-n nprow[,npcol]] [--rhs-devices r] [--device cuda|cpu]
+[--prec f64|f32|auto] [--factors FILE] -v VARS matrix.nc tracer.nc``, or
+with ``--memplan [-n N] matrix.nc``.
 """
 
 from __future__ import annotations
@@ -28,18 +37,19 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_precision
 from ..grid.indmap import load_ind_maps
 from ..io import fields, netcdf3
 from ..io.matrixfile import read_matrix_file
+from ..parallel import collectives as coll
+from ..parallel.mesh import run_world
 from ..solver.api import factor, residual_norm
 from ..solver.memplan import plan_memory
 from ..solver.plan import build_plan
 from ..solver.symbolic import symbolic_from_matrix
 from ..utils import dbg, set_dbg_lvl, timed
-
-NOT_PORTED = "not yet ported to the torch package"
 
 
 def parse_var_groups(vars_arg: str, coupled_tracer_cnt: int) -> list[list[str]]:
@@ -57,12 +67,20 @@ def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
               backend: str = "auto", dbg_lvl: int = 0, rhs_chunk: int = 32,
               device: str | torch.device = "cuda",
               precision: str = "f64",
-              factors_fname: str | None = None) -> dict:
+              factors_fname: str | None = None,
+              n_devices: int | None = None, rhs_devices: int = 1) -> dict:
     """Factor (or load the factors of ``factors_fname``, see main), solve
     every variable group and write the results in place. Returns
     {"residuals": {group: rel residual}, "groups": [...], "factorization":
-    the factorization object}."""
+    the factorization object}.
+
+    With ``n_devices`` above 1 this is one rank of the distributed mode:
+    every rank of the default process group calls it with the same
+    arguments (``main`` starts them). The first rank reads each chunk of
+    the tracer file and sends it to the others, every rank solves, and the
+    first rank writes the results and alone reports residuals."""
     set_dbg_lvl(dbg_lvl)
+    dist_mode = n_devices is not None and n_devices > 1
     with timed("get_sparse_matrix"):
         matrix = read_matrix_file(matrix_fname)
     maps = load_ind_maps(matrix_fname)
@@ -73,34 +91,46 @@ def run_solve(matrix_fname: str, inout_fname: str, vars_arg: str,
 
     groups = parse_var_groups(vars_arg, nt)
 
+    if dist_mode and backend == "scipy":
+        raise ValueError("the distributed mode (-n) needs the multifrontal "
+                         "backend")
     kwargs = ({} if backend == "scipy" else
               {"maps": maps, "device": device, "precision": precision,
                "numeric_checkpoint": factors_fname})
+    if dist_mode:
+        kwargs.update(n_devices=n_devices, rhs_devices=rhs_devices)
     with timed("factor"):
         fac = factor(matrix, backend=backend, **kwargs)
+    first = not dist_mode or dist.get_rank() == 0
 
     # stream the RHS groups through the solver rhs_chunk at a time: host
     # and device RHS memory stay O(flat_len * rhs_chunk), and each chunk is
     # written back before the next is read
     results = {"residuals": {}, "groups": groups, "factorization": fac}
-    hdr = netcdf3.read_header(inout_fname)
+    hdr = netcdf3.read_header(inout_fname) if first else None
     chunk = max(1, rhs_chunk)
     for lo in range(0, len(groups), chunk):
         gchunk = groups[lo:lo + chunk]
         fields_3d = {}
         B = np.empty((matrix.flat_len, len(gchunk)))
-        for g, group in enumerate(gchunk):
-            for t, var in enumerate(group):
-                dbg(1, f"reading {var} from {inout_fname}")
-                f3 = fields.get_var_double(inout_fname, var, 3, hdr)
-                fields_3d[var] = f3
-                B[t * tsl:(t + 1) * tsl, g] = maps.flatten_field(f3)
+        if first:
+            for g, group in enumerate(gchunk):
+                for t, var in enumerate(group):
+                    dbg(1, f"reading {var} from {inout_fname}")
+                    f3 = fields.get_var_double(inout_fname, var, 3, hdr)
+                    fields_3d[var] = f3
+                    B[t * tsl:(t + 1) * tsl, g] = maps.flatten_field(f3)
+        if dist_mode:
+            B = coll.broadcast(torch.from_numpy(B).to(fac.device), 0,
+                               None).cpu().numpy()
 
         with timed("solve"):
             X = fac.solve(B)
         X = np.asarray(X)
         if X.ndim == 1:
             X = X[:, None]
+        if not first:
+            continue
 
         for g, group in enumerate(gchunk):
             res = residual_norm(matrix, X[:, g], B[:, g])
@@ -145,6 +175,11 @@ def run_memplan(matrix_fname: str, n_devices: int, dbg_lvl: int = 0,
     return 0
 
 
+def _solve_rank(device: torch.device, kwargs: dict) -> None:
+    """One rank of the distributed mode (parallel.mesh.run_world)."""
+    run_solve(device=device, **kwargs)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="solve",
@@ -152,9 +187,9 @@ def main(argv=None) -> int:
                     "variables, updating the inout file in place")
     p.add_argument("-D", dest="dbg_lvl", type=int, default=0)
     p.add_argument("-n", dest="npgrid", default=None,
-                   help="nprow[,npcol]: the device count of --memplan's "
-                        "plan (a solve on more than one device is "
-                        + NOT_PORTED + ")")
+                   help="nprow[,npcol] (npcol defaults to nprow): run on "
+                        "nprow * npcol ranks, one per card on cuda (gloo "
+                        "ranks on cpu), or size --memplan's plan for them")
     p.add_argument("-v", dest="vars", default=None,
                    help="comma-separated tracer variable names")
     p.add_argument("--backend", default="auto",
@@ -176,7 +211,8 @@ def main(argv=None) -> int:
                    help="stream tracer RHS groups through the solver this "
                         "many at a time")
     p.add_argument("--rhs-devices", type=int, default=1,
-                   help="devices of an rhs mesh axis (" + NOT_PORTED + ")")
+                   help="ranks of the mesh's rhs axis, over which the "
+                        "right-hand sides of each solve split")
     p.add_argument("--factors", dest="factors_fname", default=None,
                    help="numeric-factor file: loaded (skipping the numeric "
                         "factorization) when it exists and matches this "
@@ -189,13 +225,6 @@ def main(argv=None) -> int:
     if args.npgrid:
         parts = [int(x) for x in args.npgrid.split(",")]
         n_devices = parts[0] * (parts[1] if len(parts) > 1 else parts[0])
-    unported = [flag for flag, used in (
-        (f"-n {args.npgrid}", n_devices > 1 and not args.memplan),
-        ("--rhs-devices", args.rhs_devices != 1)) if used]
-    if unported:
-        print(f"solve: {', '.join(unported)}: {NOT_PORTED}",
-              file=sys.stderr)
-        return 1
     try:
         if args.memplan:
             return run_memplan(args.matrix_fname, n_devices,
@@ -205,10 +234,29 @@ def main(argv=None) -> int:
             print("solve: -v VARS and inout_fname are required (unless "
                   "--memplan)", file=sys.stderr)
             return 2
-        run_solve(args.matrix_fname, args.inout_fname, args.vars,
-                  backend=args.backend, dbg_lvl=args.dbg_lvl,
-                  rhs_chunk=args.rhs_chunk, device=args.device,
-                  precision=args.prec, factors_fname=args.factors_fname)
+        kwargs = dict(matrix_fname=args.matrix_fname,
+                      inout_fname=args.inout_fname, vars_arg=args.vars,
+                      backend=args.backend, dbg_lvl=args.dbg_lvl,
+                      rhs_chunk=args.rhs_chunk, precision=args.prec,
+                      factors_fname=args.factors_fname)
+        if n_devices > 1:
+            # one rank per card on cuda (ValueError "requested N devices,
+            # have M" when there are fewer), gloo ranks on cpu
+            run_world(_solve_rank, n_devices, args.device,
+                      dict(kwargs, n_devices=n_devices,
+                           rhs_devices=args.rhs_devices))
+        elif args.rhs_devices != 1:
+            raise ValueError(f"rhs_devices={args.rhs_devices} must divide "
+                             f"n_devices=1")
+        else:
+            run_solve(device=args.device, **kwargs)
+    except torch.multiprocessing.ProcessRaisedException as e:
+        # the failing rank's traceback ends with its exception
+        print(f"solve: {str(e).strip().splitlines()[-1]}", file=sys.stderr)
+        return 1
+    except torch.multiprocessing.ProcessExitedException as e:
+        print(f"solve: {e}", file=sys.stderr)
+        return 1
     except Exception as e:  # noqa: BLE001 - CLI boundary
         print(f"solve: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
 from .stencil import StencilOperator
-from .mesh import Mesh, init_process_group, make_mesh
+from .mesh import Mesh, init_process_group, make_mesh, run_world
 
-__all__ = ["StencilOperator", "Mesh", "init_process_group", "make_mesh"]
+__all__ = ["StencilOperator", "Mesh", "init_process_group", "make_mesh",
+           "run_world"]

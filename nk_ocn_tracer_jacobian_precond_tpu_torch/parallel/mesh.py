@@ -8,17 +8,22 @@ leading axis ("front") and the stencil SpMV shards the latitude axis over
 it ("band", the 1-D block-row domain decomposition, the analog of
 solve_ABdist.c:139-144). An optional second axis "rhs" adds data
 parallelism over right-hand sides; each row of the mesh along it (the
-ranks that share a primary coordinate) gets a process group of its own.
+ranks that share a primary coordinate) gets a process group of its own,
+and so does each column (the ranks that share an "rhs" coordinate, which
+shard the factors between them).
 
-The mesh lives on the default process group (NCCL for CUDA tensors, gloo
-for CPU tensors), which the caller starts, for instance with
-``init_process_group`` below: nothing here starts one behind the caller's
-back. A single process with no group is a world of one.
+The mesh lives on the default process group, which the caller starts, for
+instance with ``init_process_group`` below (NCCL for CUDA tensors and gloo
+for CPU tensors unless the caller names the backend), or ``run_world``,
+which starts the ranks themselves for the entry points that take a rank
+count: nothing here starts one behind the caller's back. A single process
+with no group is a world of one.
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 from dataclasses import dataclass
 
 import torch
@@ -34,17 +39,31 @@ class Mesh:
     this rank's position, None when the rank is outside the mesh;
     ``group`` the process group of the mesh's ranks (None: the default
     group, or no group in a world of one); ``rhs_groups`` one group per
-    row along "rhs" (empty without that axis)."""
+    row along "rhs" (empty without that axis); ``front_groups`` one group
+    per column along the primary axis with an "rhs" axis (empty without
+    it: the column is then the mesh itself)."""
     axis_names: tuple
     shape: tuple
     ranks: tuple
     coords: tuple | None
     group: object = None
     rhs_groups: tuple = ()
+    front_groups: tuple = ()
 
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+    @property
+    def front_group(self):
+        """The group of the ranks that share this rank's "rhs" coordinate:
+        the ones that shard the factors between them along the primary
+        axis (``group`` without an "rhs" axis; None outside the mesh)."""
+        if self.coords is None:
+            return None
+        if not self.front_groups:
+            return self.group
+        return self.front_groups[self.coords[1]]
 
     @property
     def rhs_group(self):
@@ -90,27 +109,36 @@ def make_mesh(n_devices: int | None = None, axis_names=("band",),
     group = None
     if n_devices < world:
         group = dist.new_group(ranks=list(ranks))
-    rhs_groups = ()
+    rhs_groups = front_groups = ()
     if rhs_devices > 1:
         rhs_groups = tuple(
             dist.new_group(ranks=[r * rhs_devices + c
                                   for c in range(rhs_devices)])
             for r in range(shape[0]))
+        front_groups = tuple(
+            dist.new_group(ranks=[r * rhs_devices + c
+                                  for r in range(shape[0])])
+            for c in range(rhs_devices))
     coords = None
     if rank < n_devices:
         coords = ((rank // rhs_devices, rank % rhs_devices)
                   if rhs_devices > 1 else (rank,))
     return Mesh(axis_names=names, shape=shape, ranks=ranks, coords=coords,
-                group=group, rhs_groups=rhs_groups)
+                group=group, rhs_groups=rhs_groups,
+                front_groups=front_groups)
 
 
 def init_process_group(device: str | torch.device, rank: int,
-                       world_size: int, store_path: str) -> torch.device:
+                       world_size: int, store_path: str,
+                       backend: str | None = None) -> torch.device:
     """Start the default process group of ``world_size`` ranks as
     ``rank``, meeting through the file ``store_path`` (one that does not
-    exist yet, on a file system all ranks see): NCCL when ``device`` is
-    cuda (this rank's card is rank mod the card count, made current), gloo
-    when it is cpu. Returns this rank's torch.device."""
+    exist yet, on a file system all ranks see). ``backend`` defaults to
+    NCCL when ``device`` is cuda (this rank's card is rank mod the card
+    count, made current) and to gloo when it is cpu; ``backend="gloo"``
+    with cuda gives a world whose ranks may share a card, each collective
+    then going through the host (parallel.collectives). Returns this
+    rank's torch.device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         index = dev.index
@@ -121,13 +149,55 @@ def init_process_group(device: str | torch.device, rank: int,
             index = rank % torch.cuda.device_count()
         dev = resolve_device(f"cuda:{index}")
         torch.cuda.set_device(dev)
-        backend = "nccl"
+        backend = backend or "nccl"
     elif dev.type == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"backend {backend!r} on the CPU: only gloo "
+                             f"runs CPU tensors")
         backend = "gloo"
     else:
         raise ValueError(f"unsupported device {device!r} (expected cuda or "
                          f"cpu)")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"unsupported backend {backend!r} (expected nccl "
+                         f"or gloo)")
     dist.init_process_group(
         backend, init_method=f"file://{os.path.abspath(store_path)}",
         rank=rank, world_size=world_size)
     return dev
+
+
+def _rank_main(rank: int, world: int, store: str, device: str,
+               backend: str | None, target, args: tuple) -> None:
+    """One rank of ``run_world``: its process group, then target."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = init_process_group(device, rank, world, store, backend=backend)
+    try:
+        target(dev, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(target, n_ranks: int, device: str | torch.device, *args,
+              backend: str | None = None) -> None:
+    """``target(this rank's torch.device, *args)`` on ``n_ranks`` ranks
+    started here (torch.multiprocessing spawn; ``target`` and ``args`` must
+    pickle), each in a default process group of ``n_ranks`` ranks that
+    meet through a file store in a temporary directory: gloo on cpu; on
+    cuda NCCL with one card per rank (ValueError "requested N devices,
+    have M" when there are fewer cards), or, with ``backend="gloo"``,
+    ranks that share the cards there are. A rank that fails stops the
+    others, and the failure is raised here."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and backend != "gloo":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_ranks > have:
+            raise ValueError(f"requested {n_ranks} devices, have {have}")
+    elif dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (expected cuda or "
+                         f"cpu)")
+    with tempfile.TemporaryDirectory(prefix="nk_ranks_") as tmp:
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(n_ranks, os.path.join(tmp, "store"), dev.type,
+                              backend, target, args),
+            nprocs=n_ranks, join=True, start_method="spawn")

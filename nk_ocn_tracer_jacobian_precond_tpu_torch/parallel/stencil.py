@@ -12,10 +12,12 @@ The port of the JAX package's ``parallel/stencil.py`` on torch devices:
 shards the latitude axis over the ranks of a ``parallel.mesh.Mesh`` (one
 band of rows per rank, fields padded so the band count divides jmt) with a
 halo of 2 rows from each side exchanged over the ring of bands by
-``torch.distributed`` point-to-point sends (the JAX package's ``ppermute``
-pair): the replacement for the reference's MPI block-row partition
-(src/solve_ABdist.c:139-144). It never computes a band count above 1 on one
-device: without a process group it raises.
+point-to-point sends (the JAX package's ``ppermute`` pair): the
+replacement for the reference's MPI block-row partition
+(src/solve_ABdist.c:139-144). Its scatter, gather and halo exchange go
+through ``parallel.collectives``, so ranks that share a card over gloo
+exchange their CUDA bands through the host. It never computes a band
+count above 1 on one device: without a process group it raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.assemble import Assembly
 from ..ops.offsets import target_wet, wet3d
+from . import collectives as coll
 from .mesh import Mesh
 
 
@@ -111,19 +114,13 @@ class BandLayout:
             x = x.to(device=self.device, dtype=self.dtype)
             if self.mesh.size == 1:
                 return x
-            parts = [p.contiguous() for p in x.split(self.rows, dim=2)]
-        dist.scatter(out, parts, src=self.mesh.ranks[0],
-                     group=self.mesh.group)
-        return out
+            parts = list(x.split(self.rows, dim=2))
+        return coll.scatter(parts, out, 0, self.mesh.group)
 
     def gather(self, y_l: torch.Tensor) -> torch.Tensor:
         """The padded field of every rank's band ``y_l``, on every rank.
         Collective."""
-        if self.mesh.size == 1:
-            return y_l
-        parts = [torch.empty_like(y_l) for _ in range(self.mesh.size)]
-        dist.all_gather(parts, y_l.contiguous(), group=self.mesh.group)
-        return torch.cat(parts, dim=2)
+        return coll.all_gather(y_l, self.mesh.group, dim=2)
 
 
 @dataclass
@@ -251,9 +248,8 @@ class StencilOperator:
         layout = BandLayout(mesh=mesh, rows=rows,
                             shape=(self.nt, km, jmt_pad, imt),
                             dtype=self.selfs.dtype, device=self.device)
-        group = mesh.group
-        nxt = mesh.ranks[(s + 1) % nband]
-        prv = mesh.ranks[(s - 1) % nband]
+        nxt, prv = (s + 1) % nband, (s - 1) % nband
+        halo = (self.nt, km, 2, imt)
 
         def apply_fn(x_l: torch.Tensor) -> torch.Tensor:
             if x_l.shape != (self.nt, km, rows, imt):
@@ -262,18 +258,16 @@ class StencilOperator:
             if nband == 1:
                 lo, hi = x_l[:, :, -2:, :], x_l[:, :, :2, :]
             else:
-                # tag 0: the last rows to the next band (its south halo);
-                # tag 1: the first rows to the previous one (its north)
-                lo = x_l.new_empty(x_l[:, :, :2].shape)
-                hi = x_l.new_empty(x_l[:, :, :2].shape)
-                ops = [dist.P2POp(dist.isend, x_l[:, :, -2:].contiguous(),
-                                  nxt, group, tag=0),
-                       dist.P2POp(dist.isend, x_l[:, :, :2].contiguous(),
-                                  prv, group, tag=1),
-                       dist.P2POp(dist.irecv, lo, prv, group, tag=0),
-                       dist.P2POp(dist.irecv, hi, nxt, group, tag=1)]
-                for req in dist.batch_isend_irecv(ops):
-                    req.wait()
+                # the last rows to the next band (its south halo), the
+                # first rows to the previous one (its north), stacked in
+                # that order when both are one band (a ring of two)
+                sends = {nxt: [x_l[:, :, -2:]]}
+                sends.setdefault(prv, []).append(x_l[:, :, :2])
+                got = coll.exchange(
+                    {q: torch.stack(ts) for q, ts in sends.items()},
+                    {q: (len(ts),) + halo for q, ts in sends.items()},
+                    x_l, mesh.group)
+                lo, hi = got[prv][0], got[nxt][-1]
             xh = torch.cat([lo, x_l, hi], dim=2)
             return local._sum(x_l,
                               lambda off: _shift_x(xh, *off)[:, :, 2:-2, :])

@@ -78,8 +78,9 @@ def factor(matrix: SparseMatrix, backend: str = "auto",
     its ``impl`` engine ("torch" on ``device`` with ``precision`` factors,
     "f64", "f32" or "auto"; or "numpy" on the host) and passes
     MultifrontalFactorization's other keyword arguments through (among
-    them ``equilibrate_matrix`` and the checkpoints:
-    ``factor_checkpoint_dir``, ``numeric_checkpoint``)."""
+    them ``equilibrate_matrix``, the checkpoints ``factor_checkpoint_dir``
+    and ``numeric_checkpoint``, and the distributed mode's ``n_devices``,
+    ``mesh`` and ``rhs_devices``)."""
     if backend == "auto":
         backend = "multifrontal"
     if backend == "scipy":

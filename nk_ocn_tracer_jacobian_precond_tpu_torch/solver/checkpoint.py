@@ -168,9 +168,11 @@ class FactorRoundCheckpointer:
     def load_round(self, rnd: int, plan, eng, need_schur: bool,
                    factors: bool = True):
         """(K, U12, L21, perm, S-or-None) on the engine's device, at its
-        factor dtype (perm int64), or None when the Schur stack a consumer
-        needs is gone. With ``factors=False`` (the engine's offload mode)
-        only the Schur stack is read; the factor slots come back None."""
+        factor dtype (perm int64), in the engine's layout (under a mesh,
+        this rank's slice, as ``_shard_factors`` places a load), or None
+        when the Schur stack a consumer needs is gone. With
+        ``factors=False`` (the engine's offload mode) only the Schur stack
+        is read; the factor slots come back None."""
         K = U12 = L21 = perm = None
         if factors:
             with np.load(self._path(rnd), allow_pickle=False) as z:
@@ -180,15 +182,15 @@ class FactorRoundCheckpointer:
                     FP = z["FP"]
                     Kh, Uh = FP[:, :, :plan.P], FP[:, :, plan.P:]
                     Lh = z["L21"]
-                K, U12, L21 = (eng._put(a, eng.prec) for a in (Kh, Uh, Lh))
                 # the JAX engine may have written a narrower integer perm
-                perm = eng._put(z["perm"], torch.int64)
+                K, U12, L21, perm = eng._place_round(rnd, plan, Kh, Uh, Lh,
+                                                     z["perm"])
         S = None
         if need_schur:
             spath = self._spath(rnd)
             if not os.path.exists(spath):
                 return None     # a consumer needs the Schur we don't have
-            S = eng._put(np.load(spath), eng.prec)
+            S = eng._place_schur(rnd, plan, np.load(spath))
         return K, U12, L21, perm, S
 
     def save_schur(self, rnd: int, S) -> None:
@@ -269,9 +271,17 @@ def save_factors(path: str, fac) -> None:
     every round's concatenated [K | U12] stack, L21 and perm, the
     equilibration scalings and the hash of the matrix values they were
     computed from. The symbolic plan is not stored: it is rebuilt from the
-    matrix pattern or loaded with ``load_symbolic``."""
+    matrix pattern or loaded with ``load_symbolic``. Under a mesh the
+    ranks gather every round whole (collective), the mesh's first rank
+    alone writes the file (the JAX mesh engine's keys and layout, which
+    are the single-device ones), and it is on disk for every rank when
+    this returns."""
     eng = fac.engine
-    arrays = {"n_rounds": np.array([len(eng.factors)]),
+    factors = eng.global_factors()
+    if not eng._writer:
+        eng._mesh_barrier()
+        return
+    arrays = {"n_rounds": np.array([len(factors)]),
               "flat_len": np.array([eng.flat_len]),
               "pack_bs": np.array([eng._pack_bs]),
               # factors are valid only for the exact values they were
@@ -281,18 +291,20 @@ def save_factors(path: str, fac) -> None:
     if fac.dr is not None:
         arrays["dr"] = fac.dr
         arrays["dc"] = fac.dc
-    for i, (K, U12, L21, perm) in enumerate(eng.factors):
+    for i, (K, U12, L21, perm) in enumerate(factors):
         arrays[f"r{i}_FP"] = np.concatenate([_host(K), _host(U12)], axis=2)
         arrays[f"r{i}_L21"] = _host(L21)
         arrays[f"r{i}_perm"] = _host(perm)
     np.savez(path, **arrays)
+    eng._mesh_barrier()
 
 
 def load_factors(path: str, fac) -> None:
     """Load numeric factors written by save_factors (by either package)
     into ``fac``, whose engine must have the same plans (shapes are
-    checked) and pack block size, replacing its factors. Raises ValueError
-    when the file does not match the matrix pattern or values."""
+    checked) and pack block size, replacing its factors; under a mesh each
+    rank keeps its slice. Raises ValueError when the file does not match
+    the matrix pattern or values."""
     eng = fac.engine
     with np.load(path) as z:
         n_rounds = int(z["n_rounds"][0])
@@ -319,10 +331,9 @@ def load_factors(path: str, fac) -> None:
             if FP.shape != (plan.B, plan.P, plan.N):
                 raise ValueError(f"round {i}: factor shape {FP.shape} != "
                                  f"{(plan.B, plan.P, plan.N)}")
-            factors.append((eng._put(FP[:, :, :plan.P], eng.prec),
-                            eng._put(FP[:, :, plan.P:], eng.prec),
-                            eng._put(z[f"r{i}_L21"], eng.prec),
-                            eng._put(z[f"r{i}_perm"], torch.int64)))
+            factors.append(eng._place_round(
+                i, plan, FP[:, :, :plan.P], FP[:, :, plan.P:],
+                z[f"r{i}_L21"], z[f"r{i}_perm"]))
         eng.factors = tuple(factors)
         if "dr" in z.files:
             fac.dr, fac.dc = z["dr"], z["dc"]

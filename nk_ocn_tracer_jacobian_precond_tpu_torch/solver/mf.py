@@ -11,6 +11,14 @@ Every refined solve on the torch engine goes through the device refiner
 float32 factors leave the refiner hopeless, the facade refactors in
 float64 and solves again. The host engine refines as the JAX facade's host
 branch does: plain refinement, then scipy GMRES-IR.
+
+With ``n_devices`` above 1 or a ``mesh`` (the distributed mode, the
+reference's solve_ABdist), the torch engine shards the factorization over
+the ranks of a torch.distributed mesh (mf_torch's module docstring). Every
+rank builds the facade with the same arguments and calls it in step: its
+refinement and escalation decisions are taken on values that every rank
+holds equal (the gathered solves, the host residuals), so the ranks take
+the same branches and meet at the same collectives.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from ..device import resolve_device, resolve_precision
 from ..io.matrixfile import SparseMatrix
+from ..parallel.mesh import make_mesh
 from ..utils import dbg, timed
 from .api import iterative_refinement
 from .checkpoint import load_factors, save_factors
@@ -142,7 +151,15 @@ class MultifrontalFactorization:
     else written after factoring. ``timings`` holds the seconds of each
     phase of the last factorization (symbolic, equilibrate, plan, factor or
     load_factors; escalate once escalated; to_scipy and rebind after a
-    refactor with new values)."""
+    refactor with new values).
+
+    ``n_devices`` above 1 makes the mesh ``make_mesh(n_devices,
+    ("front",), rhs_devices=rhs_devices)`` over the ranks of the default
+    process group (a ValueError "requested N devices, have M" when the
+    world is smaller); ``mesh`` passes one made already. Either way the
+    torch engine shards its rounds over the mesh, and ``device`` is this
+    rank's. ``mem_budget_bytes`` and ``row_shard_min`` go to the engine
+    (mf_torch.TorchMultifrontal)."""
 
     def __init__(self, matrix: SparseMatrix, leaf_size: int = 32,
                  refine_tol: float = 1e-13, maps=None,
@@ -151,9 +168,21 @@ class MultifrontalFactorization:
                  escalate: bool = True, giveup: float = 0.25,
                  factor_checkpoint_dir: str | None = None,
                  numeric_checkpoint: str | None = None,
-                 impl: str = "torch", equilibrate_matrix: bool = True):
+                 impl: str = "torch", equilibrate_matrix: bool = True,
+                 n_devices: int | None = None, mesh=None,
+                 rhs_devices: int = 1, mem_budget_bytes: float = 1.5e9,
+                 row_shard_min: int = 1024):
         if impl not in ("torch", "numpy"):
             raise ValueError(f"unknown multifrontal impl: {impl}")
+        if mesh is None and n_devices is not None and n_devices > 1:
+            # the distributed mode (the reference's -n nprow,npcol): a
+            # parallelism flag that cannot be honoured raises
+            mesh = make_mesh(n_devices, ("front",), rhs_devices=rhs_devices)
+        if mesh is not None and impl != "torch":
+            raise ValueError("a mesh needs the torch engine (impl='torch')")
+        self.mesh = mesh
+        self._engine_kw = dict(mesh=mesh, mem_budget_bytes=mem_budget_bytes,
+                               row_shard_min=row_shard_min)
         self.impl = impl
         self.device = resolve_device(device) if impl == "torch" else None
         self.matrix = matrix
@@ -198,7 +227,7 @@ class MultifrontalFactorization:
             self.engine = TorchMultifrontal(
                 sym, self._fac_matrix, self.device, prec=prec,
                 checkpoint_dir=factor_checkpoint_dir,
-                factorize=not loadable)
+                factorize=not loadable, **self._engine_kw)
         loaded = loadable and self._load_factors(numeric_checkpoint)
         if numeric_checkpoint is not None and not loaded:
             save_factors(numeric_checkpoint, self)
@@ -302,7 +331,9 @@ class MultifrontalFactorization:
         factors would not fit the card (with a warning)."""
         if not self.escalate or self.engine.prec != torch.float32:
             return False
-        peak = plan_memory(self.engine.plans, 1, 8).peak_per_device
+        peak = plan_memory(self.engine.plans, self.engine.ndev, 8,
+                           row_shard_min=self.engine.row_shard_min
+                           ).peak_per_device
         lim = _device_memory_limit(self.device)
         if lim and peak > 0.92 * lim:
             warnings.warn(
@@ -328,7 +359,7 @@ class MultifrontalFactorization:
         with timed("float64 escalation refactorization"):
             self.engine = TorchMultifrontal(
                 self.sym, self._fac_matrix, self.device, prec=torch.float64,
-                checkpoint_dir=ckpt_dir)
+                checkpoint_dir=ckpt_dir, **self._engine_kw)
         self.timings["escalate"] = time.perf_counter() - t0
         self.timings.update(self.engine.timings)
         return True

@@ -26,6 +26,29 @@ workspace are in the engine's factor dtype ``prec`` (float64, or float32);
 rounds with P >= HI_ROUND_MIN_P run their substitutions in float64 on
 float32 factors.
 
+With a mesh (``parallel.mesh.Mesh``; mf_jax.JaxMultifrontal's ``mesh=``)
+the engine is one rank of a torch.distributed world and shards each round
+over the ranks along the mesh's primary axis (``round_layout``):
+
+* a round whose batch the rank count divides is batch-sharded: each rank
+  assembles, extend-adds and factors its own slice of the fronts, taking
+  the Schur fronts its links read from other ranks by a static exchange
+  plan, and the solve all-gathers each round's results;
+* a tree-top round of fewer fronts (N >= ``row_shard_min``, N divisible)
+  is row-sharded: every rank factors it whole, then keeps K by columns
+  (with the replicated diagonal-block stack ``kd`` for the masked
+  substitution), U12 by its border axis, L21 by its rows and the Schur
+  stack by its trailing axis;
+* any other round is replicated.
+
+Under a mesh the engine plans with ``batch_multiple`` = the rank count,
+packs at ``PANEL`` and factors the tree-top rounds with the panel kernel,
+never the library LU, as the JAX mesh engine does, so rounds and pivots
+are the same as its. An "rhs" axis splits the right-hand-side columns of
+a solve between the mesh's columns (``solve_workspace``). Every
+collective goes through ``parallel.collectives``; a mesh of one rank, or
+no mesh, communicates nothing.
+
 Index tensors go to the device once, as int64 (p_arr, a count, as int32).
 Functions that take F update it in place where that saves memory, and say
 so.
@@ -35,11 +58,13 @@ from __future__ import annotations
 
 import hashlib
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..io.matrixfile import SparseMatrix
+from ..parallel import collectives as coll
 from ..utils import dbg, timed
 from . import cuda_kernels as ck
 from .checkpoint import FactorRoundCheckpointer
@@ -224,14 +249,17 @@ def partial_factor_small_batch(F, P: int, tau: float, pack_bs: int = PANEL):
 
 
 def partial_factor(F, P: int, p_arr, tau: float = 0.0,
-                   pack_bs: int = PANEL):
+                   pack_bs: int = PANEL, allow_native_lu: bool = True):
     """Blocked LU with restricted partial pivoting of F[:, :P, :P], TRSM of
     the off-diagonal blocks, Schur update of the border. F (B, N, N) is
     overwritten. Returns (K, U12, L21, S, perm) with S = F22 - L21 @ U12
     and perm (B, P) mapping solve positions to the original eliminated-row
-    order (border rows are never permuted)."""
+    order (border rows are never permuted). Rounds of at most two fronts
+    take the library LU unless ``allow_native_lu`` is False (mesh engines,
+    as mf_jax._partial_factor_body under a mesh): then every round runs the
+    panel kernel."""
     B, N = F.shape[0], F.shape[-1]
-    if B <= 2:
+    if B <= 2 and allow_native_lu:
         return partial_factor_small_batch(F, P, tau, pack_bs)
     perm_total = torch.arange(P, device=F.device).repeat(B, 1)
     for off in range(0, P, PANEL):
@@ -293,13 +321,12 @@ def border_waves(cells_bor: np.ndarray, flat_len: int):
     return src, flat[src], waves
 
 
-def fwd_round(W, K, U12, L21, perm, cells_own, border, bs: int = PANEL,
+def fwd_local(W, K, L21, perm, cells_own, bs: int = PANEL,
               hi: bool = False):
-    """Forward substitution for one round, batched over fronts, in place
-    on the workspace W (flat_len + 1, nrhs); ``border`` is the round's
-    (src, dst, waves) of border_waves, as tensors on W's device (waves a
-    list). ``hi``: the arithmetic runs in float64 on transient upcasts of
-    the factors, and the results are stored back at W's dtype."""
+    """The arithmetic of one round's forward substitution on the fronts of
+    ``cells_own``: (y, upd) at W's dtype, y = L11^-1 P rhs (B, P, nrhs) and
+    the border update upd = L21 y (B, M, nrhs). ``hi``: float64 arithmetic
+    on transient upcasts of the factors."""
     nrhs = W.shape[1]
     rhs = W[cells_own]                                   # (B, P, nrhs)
     rhs = torch.gather(rhs, 1, perm[:, :, None].expand(-1, -1, nrhs))
@@ -307,7 +334,16 @@ def fwd_round(W, K, U12, L21, perm, cells_own, border, bs: int = PANEL,
         rhs, K, L21 = rhs.double(), K.double(), L21.double()
     y = block_lower_apply(K, rhs, bs)
     upd = (L21 @ y).to(W.dtype)
-    set_own(W, y.to(W.dtype), cells_own)
+    return y.to(W.dtype), upd
+
+
+def fwd_store(W, y, upd, cells_own, border):
+    """Store one round's forward results in W, in place: y on the fronts'
+    own rows, then the border updates subtracted in the waves of
+    ``border`` = (src, dst, waves) (border_waves, as tensors on W's device,
+    waves a list)."""
+    nrhs = W.shape[1]
+    set_own(W, y, cells_own)
     src, dst, waves = border
     upd = upd.reshape(-1, nrhs)[src]
     for a, b in waves:
@@ -315,41 +351,163 @@ def fwd_round(W, K, U12, L21, perm, cells_own, border, bs: int = PANEL,
     return W
 
 
-def bwd_round(W, K, U12, L21, cells_own, cells_bor, bs: int = PANEL,
+def bwd_local(W, K, U12, cells_own, cells_bor, bs: int = PANEL,
               hi: bool = False):
-    """Backward substitution x = U11^-1 (rhs - U12 xb), in place on W
-    (``hi``: see fwd_round)."""
+    """x = U11^-1 (rhs - U12 xb) for the fronts of ``cells_own``, at W's
+    dtype (``hi``: see fwd_local)."""
     rhs, xb = W[cells_own], W[cells_bor]
     if hi:
         rhs, xb, K, U12 = rhs.double(), xb.double(), K.double(), U12.double()
-    x = block_upper_apply(K, rhs - U12 @ xb, bs)
-    return set_own(W, x.to(W.dtype), cells_own)
+    return block_upper_apply(K, rhs - U12 @ xb, bs).to(W.dtype)
 
 
-def solve_rounds(W, factors, consts, bs: int, hi=None):
-    """The whole triangular sweep over all rounds (forward, then backward);
-    hi[r] runs round r's substitutions in float64 (see fwd_round)."""
-    hi = hi or [False] * len(factors)
-    for (K, U12, L21, perm), cc, h in zip(factors, consts, hi):
-        W = fwd_round(W, K, U12, L21, perm, cc["own"], cc["border"], bs, h)
-    for (K, U12, L21, _), cc, h in zip(reversed(factors), reversed(consts),
-                                       reversed(hi)):
-        W = bwd_round(W, K, U12, L21, cc["own"], cc["bor"], bs, h)
-    return W
+def extract_diag_blocks(K, bs: int):
+    """The bs-sized diagonal blocks of K (B, P, P) as a stack (B, P // bs,
+    bs, bs) (mf_jax._extract_diag_blocks): the masked substitution reads
+    its diagonal blocks there, never from K's sharded columns."""
+    return torch.stack([K[:, o:o + bs, o:o + bs]
+                        for o in range(0, K.shape[1], bs)], dim=1)
 
 
-def factors_from_jax(jax_engine, device) -> tuple:
+def block_lower_apply_masked(K, KD, rhs, c0: int, reduce):
+    """y = L11^-1 rhs when this rank holds only the columns [c0, c0 +
+    K.shape[2]) of the packed pivot block (a row-sharded round;
+    mf_jax._block_lower_apply_masked). Each block step contracts the
+    local columns of its row block against y, which is zero past the
+    block, and ``reduce`` sums the ranks' partial products; the diagonal
+    blocks come from KD (B, P // bs, bs, bs)."""
+    bs = KD.shape[-1]
+    Kc = K.shape[2]
+    y = torch.zeros_like(rhs)
+    for i, o in enumerate(range(0, rhs.shape[1], bs)):
+        t = rhs[:, o:o + bs] - reduce(K[:, o:o + bs, :]
+                                      @ y[:, c0:c0 + Kc])
+        t = t + torch.tril(KD[:, i], -1) @ t
+        y[:, o:o + bs] = t
+    return y
+
+
+def block_upper_apply_masked(K, KD, rhs, c0: int, reduce):
+    """x = U11^-1 rhs, masked form (layout and reduce as above)."""
+    bs = KD.shape[-1]
+    Kc = K.shape[2]
+    x = torch.zeros_like(rhs)
+    for i in reversed(range(rhs.shape[1] // bs)):
+        o = i * bs
+        t = rhs[:, o:o + bs] - reduce(K[:, o:o + bs, :]
+                                      @ x[:, c0:c0 + Kc])
+        x[:, o:o + bs] = torch.triu(KD[:, i]) @ t
+    return x
+
+
+# --------------------------------------------------------------------------
+# the mesh layout of a round
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RoundLayout:
+    """Where one round lives on a mesh of ``ndev`` ranks along its primary
+    axis, as rank ``me`` sees it (mf_jax.JaxMultifrontal's ``_put``,
+    ``_row_sharded`` and ``_shard_factors``). ``kind`` is
+
+    * "batch": the rank count divides B, and this rank holds the fronts
+      [lo, hi) (all of them without a mesh, or on a mesh of one rank);
+    * "row": a tree-top round of N >= row_shard_min, N divisible by the
+      rank count: every rank factors all its fronts, then keeps the
+      columns ``chunk(P)`` of K with the diagonal-block stack when
+      ``masked`` (P divisible by the rank count and by the diagonal
+      block), and the columns ``chunk(M)`` of U12 and of the Schur stack
+      and those rows of L21 when ``border`` (M > 0 divisible);
+    * "rep": every rank holds the whole round."""
+    kind: str
+    lo: int
+    hi: int
+    ndev: int
+    me: int
+    masked: bool = False
+    border: bool = False
+
+    @property
+    def split(self) -> bool:
+        """True where the ranks share the round's batch between them."""
+        return self.kind == "batch" and self.ndev > 1
+
+    def chunk(self, n: int) -> tuple[int, int]:
+        """This rank's [start, stop) of an axis of n entries."""
+        w = n // self.ndev
+        return self.me * w, (self.me + 1) * w
+
+
+def round_layout(plan, ndev: int, me: int, row_shard_min: int):
+    """The RoundLayout of ``plan``'s round on rank ``me`` of ``ndev``."""
+    B = plan.B
+    if ndev <= 1 or B % ndev == 0:
+        bl = B // max(ndev, 1)
+        return RoundLayout("batch", me * bl, (me + 1) * bl, ndev, me)
+    if plan.N >= row_shard_min and plan.N % ndev == 0:
+        bs = min(PANEL, plan.P)
+        return RoundLayout("row", 0, B, ndev, me,
+                           masked=plan.P % ndev == 0 and plan.P % bs == 0,
+                           border=plan.M > 0 and plan.M % ndev == 0)
+    return RoundLayout("rep", 0, B, ndev, me)
+
+
+def shard_round(lay: RoundLayout, plan, K, U12, L21, perm, own):
+    """This rank's (K, U12, L21, perm, KD) of one round's whole factors
+    (tensors) in layout ``lay``; ``own(t)`` makes a slice a tensor of its
+    own on the engine's device. KD is None off the masked path."""
+    if lay.split:
+        b = slice(lay.lo, lay.hi)
+        return own(K[b]), own(U12[b]), own(L21[b]), own(perm[b]), None
+    KD = None
+    if lay.kind == "row":
+        if lay.masked:
+            KD = own(extract_diag_blocks(K, min(PANEL, plan.P)))
+            c0, c1 = lay.chunk(plan.P)
+            K = K[:, :, c0:c1]
+        if lay.border:
+            m0, m1 = lay.chunk(plan.M)
+            U12, L21 = U12[:, :, m0:m1], L21[:, m0:m1, :]
+    return own(K), own(U12), own(L21), own(perm), KD
+
+
+def shard_schur(lay: RoundLayout, plan, S, own):
+    """This rank's part of one round's whole Schur stack S (a tensor) in
+    layout ``lay`` (mf_jax._shard_schur for the row-sharded rounds)."""
+    if lay.split:
+        return own(S[lay.lo:lay.hi])
+    if lay.kind == "row" and lay.border:
+        m0, m1 = lay.chunk(plan.M)
+        return own(S[:, :, m0:m1])
+    return own(S)
+
+
+def factors_from_jax(jax_engine, device, mesh=None) -> tuple:
     """The per-round (K, U12, L21, perm) tensors of a JaxMultifrontal
     engine's factors on ``device``, at the JAX engine's own dtype, read
     through np.asarray (no jax import here): the port's solve can then run
-    on the JAX engine's factors."""
+    on the JAX engine's factors.
+
+    With ``mesh`` (this rank's parallel.mesh.Mesh), the JAX engine is a
+    mesh engine with as many devices along its primary axis as ``mesh``
+    has ranks there, and each tuple is this rank's slice of its global
+    factors, (K, U12, L21, perm, KD) in the port's layout (round_layout,
+    with the JAX engine's own ``_row_sharded`` choosing the row-sharded
+    rounds), for TorchMultifrontal.set_factors."""
     device = torch.device(device)
     out = []
-    for K, U12, L21, perm, _ in jax_engine.factors:
-        out.append(tuple(torch.from_numpy(np.array(a)).to(device)
-                         for a in (K, U12, L21))
-                   + (torch.from_numpy(np.array(perm, dtype=np.int64))
-                      .to(device),))
+    for rnd, (K, U12, L21, perm, _) in enumerate(jax_engine.factors):
+        arrs = [torch.from_numpy(np.array(a)) for a in (K, U12, L21)]
+        arrs.append(torch.from_numpy(np.array(perm, dtype=np.int64)))
+        if mesh is None:
+            out.append(tuple(a.to(device) for a in arrs))
+            continue
+        plan = jax_engine.plans[rnd]
+        # the JAX engine's own choice of row-sharded rounds, as a threshold
+        row_min = 0 if jax_engine._row_sharded(plan) else plan.N + 1
+        lay = round_layout(plan, mesh.shape[0], mesh.coords[0], row_min)
+        out.append(shard_round(lay, plan, *arrs,
+                               lambda t: t.to(device).contiguous().clone()))
     return tuple(out)
 
 
@@ -370,10 +528,10 @@ def pack_block_size(plans) -> int:
 
 
 class TorchMultifrontal:
-    """Single-device numeric engine over the round plans: factor
-    (``refactor`` for new values on the same pattern) and multi-RHS
-    solve. ``device`` is a torch.device (see device.resolve_device),
-    ``prec`` the factor dtype (torch.float64 or torch.float32).
+    """Numeric engine over the round plans: factor (``refactor`` for new
+    values on the same pattern) and multi-RHS solve. ``device`` is a
+    torch.device (see device.resolve_device), ``prec`` the factor dtype
+    (torch.float64 or torch.float32).
 
     With ``checkpoint_dir`` every completed round is written there
     (checkpoint.FactorRoundCheckpointer) and rounds with a valid
@@ -385,14 +543,26 @@ class TorchMultifrontal:
     ``factor_only`` writes the checkpoints and keeps no factors (the
     engine cannot solve; another engine, or ``stream_solve``, resumes from
     the directory); ``stop_after`` (factor-only only) ends the pass after
-    that round, leaving a directory the next engine continues from."""
+    that round, leaving a directory the next engine continues from.
+
+    ``mesh`` (a parallel.mesh.Mesh holding this rank) makes the engine one
+    rank of a sharded factorization (see the module docstring); every rank
+    of the mesh constructs it with the same arguments, and its factor,
+    solve and checkpoint calls are collective. Only the mesh's first rank
+    writes checkpoint files, and each rank reads its own slice back. The
+    fronts shard over the mesh's primary axis. ``mem_budget_bytes`` bounds each round's padded fronts in the
+    plan (build_plan), ``row_shard_min`` is the smallest front that a
+    round with fewer fronts than ranks shards by rows (the JAX engine's
+    ``NK_MEM_BUDGET`` and ``ROW_SHARD_MIN``)."""
 
     def __init__(self, sym: SymbolicFactorization, matrix: SparseMatrix,
                  device: torch.device, factorize: bool = True,
                  prec: torch.dtype = torch.float64,
                  checkpoint_dir: str | None = None,
                  factor_only: bool = False, offload: bool | None = None,
-                 stop_after: int | None = None):
+                 stop_after: int | None = None, mesh=None,
+                 mem_budget_bytes: float = 1.5e9,
+                 row_shard_min: int = 1024):
         if prec not in NUMPY_DTYPE:
             raise ValueError(f"unsupported factor dtype {prec}")
         if offload is None:
@@ -403,10 +573,20 @@ class TorchMultifrontal:
         if stop_after is not None and not factor_only:
             raise ValueError("stop_after requires factor_only (a partial "
                              "factor set cannot solve)")
+        if mesh is not None and mesh.coords is None:
+            raise ValueError("this rank is outside the mesh")
         self.sym = sym
         self.device = torch.device(device)
         self.prec = prec
         self.flat_len = sym.flat_len
+        self.mesh = mesh
+        self.ndev = mesh.shape[0] if mesh is not None else 1
+        self.me = mesh.coords[0] if mesh is not None else 0
+        self._fgroup = mesh.front_group if mesh is not None else None
+        # only the mesh's first rank writes files
+        self._writer = mesh is None or not any(mesh.coords)
+        self.mem_budget_bytes = mem_budget_bytes
+        self.row_shard_min = row_shard_min
         self._ckpt_dir = checkpoint_dir
         self._offload = offload
         self._factor_only = factor_only
@@ -417,11 +597,21 @@ class TorchMultifrontal:
         with timed("build round plans"):
             # bytes_per_elem stays at its default of 4 at either dtype, as the
             # JAX engine calls it: the chunking (and so every round and
-            # pivot) must be the same
-            self.plans = build_plan(sym, matrix, batch_multiple=1)
-        self._pack_bs = pack_block_size(self.plans)
-        dbg(1, "memory plan: "
-            + plan_memory(self.plans, 1, prec.itemsize).summary())
+            # pivot) must be the same; a mesh pads batches to its rank count
+            self.plans = build_plan(sym, matrix,
+                                    mem_budget_bytes=mem_budget_bytes,
+                                    batch_multiple=self.ndev)
+        # mesh engines pin PANEL (the masked substitution's diagonal blocks
+        # and the sharded checkpoint layout), as the JAX mesh engine does
+        self._pack_bs = (PANEL if mesh is not None
+                         else pack_block_size(self.plans))
+        self.layouts = [round_layout(p, self.ndev, self.me, row_shard_min)
+                        for p in self.plans]
+        if mesh is not None:
+            self._check_plans()
+        dbg(1, "memory plan: " + plan_memory(
+            self.plans, self.ndev, prec.itemsize,
+            row_shard_min=row_shard_min).summary())
         # each round's device constants are built on its first use: a
         # factor-only pass builds none for the rounds it loads, the stream
         # solve's engine none at all. An engine that will solve needs them
@@ -433,41 +623,225 @@ class TorchMultifrontal:
                     self._round_consts(rnd)
         self.timings["plan"] = time.perf_counter() - t0
         self.factors = None
+        # the replicated diagonal-block stacks of the masked rounds
+        self.kd: list = [None] * len(self.plans)
         if factorize:
             self._factorize(matrix)
+
+    # -- placement ----------------------------------------------------------
 
     def _put(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         """A host array on the engine's device at ``dtype``."""
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
+    def _own(self, t) -> torch.Tensor:
+        """``t`` (a tensor or an array) as a tensor of its own on the
+        engine's device, floating values at the factor dtype and integers
+        as int64; a whole contiguous tensor already there is kept."""
+        t = torch.as_tensor(t)
+        dtype = self.prec if t.is_floating_point() else torch.int64
+        here = (t.device.type == self.device.type
+                and self.device.index in (None, t.device.index))
+        if here and t.dtype == dtype and t._base is None \
+                and t.is_contiguous():
+            return t
+        return torch.empty(t.shape, dtype=dtype,
+                           device=self.device).copy_(t)
+
+    def _place_round(self, rnd: int, plan, K, U12, L21, perm) -> tuple:
+        """Round ``rnd``'s whole factors (host arrays or tensors) in this
+        rank's layout on the device: returns (K, U12, L21, perm) and keeps
+        the round's diagonal-block stack in ``kd``."""
+        K, U12, L21, perm, self.kd[rnd] = shard_round(
+            self.layouts[rnd], plan,
+            *(torch.as_tensor(np.asarray(a) if not isinstance(
+                a, torch.Tensor) else a) for a in (K, U12, L21, perm)),
+            self._own)
+        return K, U12, L21, perm
+
+    def _place_schur(self, rnd: int, plan, S) -> torch.Tensor:
+        """Round ``rnd``'s whole Schur stack in this rank's layout."""
+        return shard_schur(self.layouts[rnd], plan, torch.as_tensor(S),
+                           self._own)
+
+    def _gather_round(self, rnd: int, K, U12, L21, perm) -> tuple:
+        """Round ``rnd``'s whole factors from every rank's slice
+        (collective over the mesh column)."""
+        lay, g = self.layouts[rnd], self._fgroup
+        if lay.split:
+            return tuple(coll.all_gather(t, g) for t in (K, U12, L21, perm))
+        if lay.kind == "row":
+            if lay.masked:
+                K = coll.all_gather(K, g, dim=2)
+            if lay.border:
+                U12 = coll.all_gather(U12, g, dim=2)
+                L21 = coll.all_gather(L21, g, dim=1)
+        return K, U12, L21, perm
+
+    def _gather_schur(self, rnd: int, S) -> torch.Tensor:
+        lay = self.layouts[rnd]
+        if lay.split:
+            return coll.all_gather(S, self._fgroup)
+        if lay.kind == "row" and lay.border:
+            return coll.all_gather(S, self._fgroup, dim=2)
+        return S
+
+    def global_factors(self) -> tuple:
+        """Every round's whole (K, U12, L21, perm), gathered from the
+        ranks' slices (collective under a mesh; the factors themselves
+        without one)."""
+        if self.mesh is None:
+            return self.factors
+        return tuple(self._gather_round(rnd, *f)
+                     for rnd, f in enumerate(self.factors))
+
+    def resident_factor_bytes(self) -> int:
+        """The factor bytes this rank holds (K, U12, L21, the diagonal-block
+        stacks), counted as memplan.plan_memory counts them: perm at the 4
+        bytes of the JAX engine's int32 perm (the port's is int64)."""
+        n = 0
+        for (K, U12, L21, perm), kd in zip(self.factors, self.kd):
+            for t in (K, U12, L21, kd):
+                if t is not None:
+                    n += t.numel() * t.element_size()
+            n += perm.numel() * 4
+        return n
+
+    def set_factors(self, factors) -> None:
+        """Install per-round factors already in this rank's layout:
+        (K, U12, L21, perm) tuples, or (K, U12, L21, perm, KD) ones as
+        factors_from_jax(..., mesh) gives them."""
+        self.factors = tuple(tuple(f[:4]) for f in factors)
+        self.kd = [f[4] if len(f) > 4 else None for f in factors]
+
+    def _check_plans(self) -> None:
+        """Every rank of the mesh must walk the same rounds with the same
+        options, or the first collective where two differ hangs: compare a
+        digest of them across each group the engine talks over (which is
+        also each group's first collective)."""
+        h = hashlib.sha1(np.array([[p.B, p.P, p.N] for p in self.plans],
+                                  dtype=np.int64).tobytes())
+        h.update(f"{self.row_shard_min} {self._pack_bs} {self.prec} "
+                 f"{self.mem_budget_bytes}".encode())
+        digest = torch.from_numpy(np.frombuffer(h.digest()[:8],
+                                                dtype=np.int64).copy())
+        digest = digest.to(self.device)
+        groups = [self._fgroup]
+        if self.mesh.rhs_groups:
+            groups.append(self.mesh.rhs_group)
+        for group in groups:
+            if not bool((coll.all_gather(digest, group) == digest).all()):
+                raise RuntimeError("the ranks of the mesh built different "
+                                   "round plans (matrix, options or "
+                                   "arguments differ between ranks)")
+
+    def _psum(self, t: torch.Tensor) -> torch.Tensor:
+        return coll.all_reduce_sum(t, self._fgroup)
+
+    def _mesh_barrier(self) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            coll.barrier(self.mesh.group)
+
+    # -- plan constants -----------------------------------------------------
+
     def _round_consts(self, rnd: int) -> dict:
         """Round ``rnd``'s plan constants on the device, built on first
         use and kept."""
         if self._consts[rnd] is None:
-            self._consts[rnd] = self._device_constants(self.plans[rnd])
+            self._consts[rnd] = self._device_constants(rnd)
         return self._consts[rnd]
 
-    def _device_constants(self, p) -> dict:
+    def _device_constants(self, rnd: int) -> dict:
+        """The round's index tensors: the assembly maps and p_arr of this
+        rank's fronts, its extend-add links (``_link_group``), and the
+        solve's cell maps, whole (``own``, ``bor``, ``border``) and of this
+        rank's fronts (``own_l``, ``bor_l``)."""
+        p, lay = self.plans[rnd], self.layouts[rnd]
+
         def put(a, dtype=torch.int64):
             return self._put(a, dtype)
 
-        groups = []
-        for g in p.child_groups:
-            order, waves = link_waves(g.dst_slots)
-            groups.append((g.src_round, put(g.src_slots[order]),
-                           put(g.dst_slots[order]), put(g.inv[order]),
-                           waves))
+        b = slice(lay.lo, lay.hi)
+        links = [self._link_group(rnd, g, put) for g in p.child_groups]
         src, dst, waves = border_waves(p.cells_bor, self.flat_len)
+        own, bor = put(p.cells_own), put(p.cells_bor)
+        if lay.split:
+            own_l, bor_l = put(p.cells_own[b]), put(p.cells_bor[b])
+        else:
+            own_l, bor_l = own, bor
         return dict(
-            a_col=put(p.a_col), a_csrc=put(p.a_csrc),
-            a_pos=put(p.a_pos), a_src=put(p.a_src),
+            a_col=put(p.a_col[b]), a_csrc=put(p.a_csrc[b]),
+            a_pos=put(p.a_pos[b]), a_src=put(p.a_src[b]),
             # any real spill entries? (pads sit at >= N*N)
-            spill=bool((p.a_pos < p.N * p.N).any()),
-            p_arr=put(p.p_arr, torch.int32),
-            own=put(p.cells_own), bor=put(p.cells_bor),
+            spill=bool((p.a_pos[b] < p.N * p.N).any()),
+            p_arr=put(p.p_arr[b], torch.int32),
+            own=own, bor=bor, own_l=own_l, bor_l=bor_l,
             border=(put(src), put(dst), waves),
-            groups=groups)
+            groups=[lk[0] for lk in links], exchange=[lk[1] for lk in links])
+
+    def _link_group(self, rnd: int, g, put) -> tuple:
+        """One child group's links into this rank's fronts, in link order:
+        ((src_round, src_slots, dst_slots, inv, waves), exchange plan). The
+        source slots index the stack that ``_source_schur`` hands the
+        extend-add: the source round's Schur stack, or, when the source
+        is batch-sharded over several ranks, the fronts this rank's links
+        read, taken in owner order from the local stack and from the other
+        ranks (the exchange plan: which local fronts go to which rank, how
+        many come from which; None without one)."""
+        lay, ls = self.layouts[rnd], self.layouts[g.src_round]
+        dst_all = g.dst_slots.astype(np.int64)
+        src_all = g.src_slots.astype(np.int64)
+
+        def reads(q: int) -> np.ndarray:
+            """The source slots that rank q's links read."""
+            if not lay.split:
+                return np.unique(src_all)
+            w = lay.hi - lay.lo
+            return np.unique(src_all[(dst_all >= q * w)
+                                     & (dst_all < (q + 1) * w)])
+
+        mine = (dst_all >= lay.lo) & (dst_all < lay.hi)
+        ss, ds, inv = src_all[mine], dst_all[mine] - lay.lo, g.inv[mine]
+        xplan = None
+        if ls.split:
+            bl = ls.hi - ls.lo
+            need = reads(self.me)
+            owner = need // bl
+            send = {}
+            for q in range(self.ndev):
+                theirs = reads(q)
+                theirs = theirs[theirs // bl == self.me]
+                if q != self.me and len(theirs):
+                    send[q] = put(theirs - ls.lo)
+            xplan = dict(
+                send=send,
+                recv={int(q): int((owner == q).sum())
+                      for q in np.unique(owner) if q != self.me},
+                keep=put(need[owner == self.me] - ls.lo),
+                owners=sorted(set(owner.tolist())))
+            ss = np.searchsorted(need, ss)
+        order, waves = link_waves(ds)
+        return ((g.src_round, put(ss[order]), put(ds[order]),
+                 put(inv[order]), waves), xplan)
+
+    def _source_schur(self, src_rnd: int, S, xplan):
+        """The Schur stack a link group reads: ``S`` itself, the whole
+        stack of a row-sharded source gathered from its column shards, or
+        (``xplan``) the fronts this rank's links read, exchanged with the
+        other ranks of the mesh column."""
+        lay = self.layouts[src_rnd]
+        if xplan is not None:
+            got = coll.exchange(
+                {q: S.index_select(0, idx) for q, idx in xplan["send"].items()},
+                {q: (c,) + tuple(S.shape[1:])
+                 for q, c in xplan["recv"].items()}, S, self._fgroup)
+            parts = [S.index_select(0, xplan["keep"]) if o == self.me
+                     else got[o] for o in xplan["owners"]]
+            return torch.cat(parts) if parts else S[:0]
+        if lay.kind == "row" and lay.border:
+            return coll.all_gather(S, self._fgroup, dim=2)
+        return S
 
     def _plan_pm(self, plan) -> np.ndarray:
         """True (pivot, border) sizes per batch entry of a round: the trim
@@ -477,6 +851,8 @@ class TorchMultifrontal:
             f = self.sym.fronts[nid]
             pm[b] = (f.p, f.n - f.p)
         return pm
+
+    # -- checkpoints --------------------------------------------------------
 
     def _ckpt_for(self, matrix: SparseMatrix, nz: np.ndarray | None = None):
         """The round checkpointer keyed to this matrix's values (in the
@@ -522,6 +898,30 @@ class TorchMultifrontal:
                     changed = True
         return done
 
+    def _save_round(self, ckpt, rnd: int, plan, K, U12, L21, perm, S):
+        """Round ``rnd``'s factors (and Schur stack, if given) to the
+        checkpoint directory: gathered whole under a mesh, written by the
+        first rank alone, on disk for every rank when this returns."""
+        K, U12, L21, perm = self._gather_round(rnd, K, U12, L21, perm)
+        if S is not None:
+            S = self._gather_schur(rnd, S)
+        if self._writer:
+            ckpt.save_round(rnd, plan, K, U12, L21, perm, S,
+                            pm=self._plan_pm(plan))
+        self._mesh_barrier()
+
+    def _save_schur(self, ckpt, rnd: int, S) -> None:
+        S = self._gather_schur(rnd, S)
+        if self._writer:
+            ckpt.save_schur(rnd, S)
+        self._mesh_barrier()
+
+    def _drop_schur(self, ckpt, rnd: int) -> None:
+        if self._writer:
+            ckpt.drop_schur(rnd)
+
+    # -- factor -------------------------------------------------------------
+
     def refactor(self, matrix: SparseMatrix) -> None:
         """New numeric values, same pattern (Newton-iteration reuse)."""
         self._factorize(matrix)
@@ -530,6 +930,7 @@ class TorchMultifrontal:
         # drop the previous factors first: both sets resident at once
         # would double the peak
         self.factors = None
+        self.kd = [None] * len(self.plans)
         nz = np.zeros(len(matrix.nzval) + 1, dtype=NUMPY_DTYPE[self.prec])
         nz[:-1] = matrix.nzval
         # GESP static-pivot threshold: sqrt(eps) of the factor precision
@@ -578,6 +979,8 @@ class TorchMultifrontal:
                 dbg(1, f"factor checkpoint: {len(repair)} rounds have "
                        f"valid factors but missing Schur stacks; "
                        f"recomputing them for their Schur only")
+            # no rank writes before every rank has scanned
+            self._mesh_barrier()
         t_round = time.perf_counter()
         for rnd, plan in enumerate(self.plans):
             if rnd in done:
@@ -590,7 +993,7 @@ class TorchMultifrontal:
                         uses[g.src_round] -= 1
                         if uses[g.src_round] == 0:
                             schur[g.src_round] = None
-                            ckpt.drop_schur(g.src_round)
+                            self._drop_schur(ckpt, g.src_round)
                     factors.append(loaded[:4])
                     schur[rnd] = loaded[4]
                     # schur[rnd] must hold the stack's only reference, or
@@ -603,8 +1006,12 @@ class TorchMultifrontal:
                                 cc["a_pos"], cc["a_src"], cc["p_arr"],
                                 plan.N, plan.P, cc["spill"])
             drops: list[int] = []
-            for src_rnd, ss, ds, inv, waves in cc["groups"]:
-                extend_add(F, schur[src_rnd], ss, ds, inv, waves)
+            for (src_rnd, ss, ds, inv, waves), xplan in zip(
+                    cc["groups"], cc["exchange"]):
+                S_src = self._source_schur(src_rnd, schur[src_rnd], xplan)
+                if waves:
+                    extend_add(F, S_src, ss, ds, inv, waves)
+                del S_src
                 uses[src_rnd] -= 1
                 if uses[src_rnd] == 0:
                     # free the device memory now, but delete the source's
@@ -613,19 +1020,27 @@ class TorchMultifrontal:
                     # resumable prefix
                     schur[src_rnd] = None
                     drops.append(src_rnd)
+            # a mesh engine never takes the library LU (mf_jax: no native
+            # LU under a mesh), so its tree-top pivots are the panel's
             K, U12, L21, S, perm = partial_factor(
-                F, plan.P, cc["p_arr"], self._tau, self._pack_bs)
+                F, plan.P, cc["p_arr"], self._tau, self._pack_bs,
+                allow_native_lu=self.mesh is None)
             del F
+            lay = self.layouts[rnd]
+            if lay.kind == "row":
+                K, U12, L21, perm, self.kd[rnd] = shard_round(
+                    lay, plan, K, U12, L21, perm, self._own)
+                S = shard_schur(lay, plan, S, self._own)
             schur[rnd] = S if uses[rnd] > 0 else None
             if ckpt is not None:
                 # the host copy in either save synchronizes the round
                 if rnd not in repair:
-                    ckpt.save_round(rnd, plan, K, U12, L21, perm,
-                                    schur[rnd], pm=self._plan_pm(plan))
+                    self._save_round(ckpt, rnd, plan, K, U12, L21, perm,
+                                     schur[rnd])
                 elif schur[rnd] is not None and plan.M > 0:
-                    ckpt.save_schur(rnd, S)
+                    self._save_schur(ckpt, rnd, S)
                 for src in drops:
-                    ckpt.drop_schur(src)
+                    self._drop_schur(ckpt, src)
                 now = time.perf_counter()
                 dbg(1, f"factor round {rnd + 1}/{len(self.plans)} "
                        f"B={plan.B} P={plan.P} N={plan.N} "
@@ -634,6 +1049,7 @@ class TorchMultifrontal:
                 t_round = now
             if self._offload:
                 factors.append((None,) * 4)
+                self.kd[rnd] = None
             else:
                 factors.append((K, U12, L21, perm))
             del K, U12, L21, S, perm
@@ -645,7 +1061,7 @@ class TorchMultifrontal:
             # every round is on disk now: no resume needs a Schur stack
             for rnd, plan in enumerate(self.plans):
                 if plan.M > 0:
-                    ckpt.drop_schur(rnd)
+                    self._drop_schur(ckpt, rnd)
             if self._offload and not self._factor_only:
                 dbg(1, f"factor offload: streaming factors back from "
                        f"{ckpt.dir}")
@@ -655,6 +1071,8 @@ class TorchMultifrontal:
                             rnd, plan, self, need_schur=False)[:4]
         return tuple(factors)
 
+    # -- solve --------------------------------------------------------------
+
     def _hi_round(self, plan) -> bool:
         return plan.P >= HI_ROUND_MIN_P and self.prec == torch.float32
 
@@ -662,12 +1080,97 @@ class TorchMultifrontal:
         """Solve in place on W (flat_len + 1, nrhs), a tensor of the factor
         dtype on the engine's device holding the right-hand sides above its
         zero dump row; returns W. The device-side solve the refiner applies
-        as its preconditioner (mf_jax.JaxMultifrontal._solve_program)."""
+        as its preconditioner (mf_jax.JaxMultifrontal._solve_program).
+
+        Under a mesh every rank passes the same W and gets the same
+        result. With an "rhs" axis whose size divides nrhs, each mesh
+        column solves its own block of columns and the blocks are
+        gathered along the rows of the mesh (mf_jax._put_rhs)."""
         if self.factors is None:
             raise RuntimeError("no numeric factors: call refactor() first")
+        mesh = self.mesh
+        if mesh is not None and mesh.rhs_groups \
+                and W.shape[1] % mesh.shape[1] == 0:
+            w = W.shape[1] // mesh.shape[1]
+            c = mesh.coords[1]
+            Wc = self._sweep(W[:, c * w:(c + 1) * w].contiguous())
+            return coll.all_gather(Wc, mesh.rhs_group, dim=1)
+        return self._sweep(W)
+
+    def _sweep(self, W: torch.Tensor) -> torch.Tensor:
+        """The forward then backward sweep over all rounds, in place; hi
+        rounds (``_hi_round``) substitute in float64 on transient upcasts
+        of the factors and store back at W's dtype."""
         consts = [self._round_consts(r) for r in range(len(self.plans))]
-        return solve_rounds(W, self.factors, consts, self._pack_bs,
-                            [self._hi_round(p) for p in self.plans])
+        hi = [self._hi_round(p) for p in self.plans]
+        for rnd in range(len(self.plans)):
+            W = self._fwd(rnd, W, consts[rnd], hi[rnd])
+        for rnd in reversed(range(len(self.plans))):
+            W = self._bwd(rnd, W, consts[rnd], hi[rnd])
+        return W
+
+    def _fwd(self, rnd: int, W, cc: dict, hi: bool):
+        """One round's forward substitution: this rank's fronts of a
+        batch-sharded round (all of them without a mesh), whose results
+        every rank then gathers; a row-sharded round's masked substitution
+        over the column shards of K and its row-sharded border update; a
+        replicated round as on one device. Every rank stores the whole
+        round's results in the single-device order."""
+        K, U12, L21, perm = self.factors[rnd]
+        lay, plan = self.layouts[rnd], self.plans[rnd]
+        if lay.kind == "row":
+            nrhs = W.shape[1]
+            rhs = torch.gather(W[cc["own"]], 1,
+                               perm[:, :, None].expand(-1, -1, nrhs))
+            KD = self.kd[rnd]
+            if hi:
+                rhs, K, L21 = rhs.double(), K.double(), L21.double()
+                KD = None if KD is None else KD.double()
+            if KD is not None:
+                y = block_lower_apply_masked(K, KD, rhs,
+                                             lay.chunk(plan.P)[0], self._psum)
+            else:
+                y = block_lower_apply(K, rhs, self._pack_bs)
+            upd = (L21 @ y).to(W.dtype)
+            if lay.border:
+                upd = coll.all_gather(upd, self._fgroup, dim=1)
+            y = y.to(W.dtype)
+        else:
+            y, upd = fwd_local(W, K, L21, perm, cc["own_l"], self._pack_bs,
+                               hi)
+            if lay.split:
+                y = coll.all_gather(y, self._fgroup)
+                upd = coll.all_gather(upd, self._fgroup)
+        return fwd_store(W, y, upd, cc["own"], cc["border"])
+
+    def _bwd(self, rnd: int, W, cc: dict, hi: bool):
+        """One round's backward substitution (layouts as in
+        ``_fwd``; a row-sharded round sums its U12 xb over the border
+        shards)."""
+        K, U12, L21, perm = self.factors[rnd]
+        lay, plan = self.layouts[rnd], self.plans[rnd]
+        if lay.kind == "row":
+            rhs, xb = W[cc["own"]], W[cc["bor"]]
+            KD = self.kd[rnd]
+            if hi:
+                rhs, xb, K, U12 = (rhs.double(), xb.double(), K.double(),
+                                   U12.double())
+                KD = None if KD is None else KD.double()
+            if lay.border:
+                m0, m1 = lay.chunk(plan.M)
+                t = rhs - self._psum(U12 @ xb[:, m0:m1])
+            else:
+                t = rhs - U12 @ xb
+            if KD is not None:
+                x = block_upper_apply_masked(K, KD, t, lay.chunk(plan.P)[0],
+                                             self._psum)
+            else:
+                x = block_upper_apply(K, t, self._pack_bs)
+            return set_own(W, x.to(W.dtype), cc["own"])
+        x = bwd_local(W, K, U12, cc["own_l"], cc["bor_l"], self._pack_bs, hi)
+        if lay.split:
+            x = coll.all_gather(x, self._fgroup)
+        return set_own(W, x, cc["own"])
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         """x = A^-1 b on the host arrays b (n,) or (n, nrhs); the RHS is

@@ -133,14 +133,15 @@ class StreamSolver:
 
 def stream_solve(matrix, maps, sym, ckpt_dir: str, B: np.ndarray,
                  pack_bs: int = 128, refine_tol: float = 1e-10,
-                 max_iters: int = 8):
+                 max_iters: int = 8, mem_budget_bytes: float = 1.5e9):
     """End-to-end out-of-core solve: equilibrate, validate the on-disk
     checkpoints against the matrix values, stream-apply, refine with
     exact float64 residuals (scipy SpMV). Returns (X, rel_residuals).
 
-    ``pack_bs`` is the writer engine's ``_pack_bs``; its factor dtype is
-    read from the round files. Both enter the checkpoint key. The solve
-    runs on the host; no device is touched."""
+    ``pack_bs`` and ``mem_budget_bytes`` are the writer engine's
+    ``_pack_bs`` and plan budget; its factor dtype is read from the round
+    files. All three enter the checkpoint key. The solve runs on the host;
+    no device is touched."""
     from .mf import equilibrate
     from .mf_torch import TorchMultifrontal
 
@@ -154,7 +155,8 @@ def stream_solve(matrix, maps, sym, ckpt_dir: str, B: np.ndarray,
     # for another width, and the width keys the checkpoints
     eng = TorchMultifrontal(sym, fac_matrix, torch.device("cpu"),
                             factorize=False, prec=prec,
-                            checkpoint_dir=ckpt_dir)
+                            checkpoint_dir=ckpt_dir,
+                            mem_budget_bytes=mem_budget_bytes)
     eng._pack_bs = int(pack_bs)
     ck = eng._ckpt_for(fac_matrix)
     done = ck.scan(eng.plans)

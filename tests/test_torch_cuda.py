@@ -221,12 +221,12 @@ def test_hi_rounds_on_card(card, problem, monkeypatch):
     matrix, maps = problem
     monkeypatch.setattr(mf_torch, "HI_ROUND_MIN_P", 1)
     calls = []
-    real = mf_torch.fwd_round
+    real = mf_torch.fwd_local
 
     def counted(W, *args, **kw):
         calls.append((W.device.type, W.dtype, args[-1]))
         return real(W, *args, **kw)
-    monkeypatch.setattr(mf_torch, "fwd_round", counted)
+    monkeypatch.setattr(mf_torch, "fwd_local", counted)
     B = np.random.default_rng(10).standard_normal((matrix.flat_len, 2))
     out = []
     for dev in (card, "cpu"):
@@ -382,3 +382,72 @@ def test_nccl_world_of_one_sharded_apply(card, tmp_path):
         assert torch.equal(y, op.apply(x))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_engine_nccl_world_of_one(card, problem, tmp_path):
+    """The mesh engine as an NCCL group of one rank (make_mesh(1,
+    ("front",))): every round, the rounds of at most two fronts included,
+    goes through K1 and K3 on the card, the perms are those of the same
+    mesh engine on the CPU (the plain versions), and the refined solve
+    meets the contract and agrees with the CPU's."""
+    import torch.distributed as dist
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        init_process_group, make_mesh)
+    matrix, maps = problem
+    dev = init_process_group("cuda", 0, 1, str(tmp_path / "store"))
+    try:
+        assert dist.get_backend() == "nccl"
+        before = dict(ck.LAUNCHES)
+        gpu = MultifrontalFactorization(matrix, maps=maps, device=dev,
+                                        mesh=make_mesh(1, ("front",)))
+        eng = gpu.engine
+        panels = sum(-(-p.P // mf_torch.PANEL) for p in eng.plans)
+        assert any(p.B <= 2 for p in eng.plans)
+        assert ck.LAUNCHES["pivoted_panel_f64"] - before[
+            "pivoted_panel_f64"] == panels
+        assert ck.LAUNCHES["ell_assemble_f64"] - before[
+            "ell_assemble_f64"] == len(eng.plans)
+        cpu = MultifrontalFactorization(matrix, maps=maps, sym=gpu.sym,
+                                        device="cpu",
+                                        mesh=make_mesh(1, ("front",)))
+        for g, c in zip(eng.factors, cpu.engine.factors):
+            assert np.array_equal(g[3].cpu().numpy(), c[3].numpy())
+        B = np.random.default_rng(4).standard_normal((matrix.flat_len, 4))
+        X = gpu.solve(B)
+        A = matrix.to_scipy()
+        res = np.linalg.norm(A @ X - B, axis=0) / np.linalg.norm(B, axis=0)
+        assert res.max() < 1e-11, res
+        np.testing.assert_allclose(X, cpu.solve(B), rtol=1e-9, atol=1e-12)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_masked_substitution_on_card_matches_plain(card):
+    """The masked block substitutions (a row-sharded round's, here with
+    one rank holding every column, so the sum over ranks is the product
+    itself) on the card against the plain block substitutions of the same
+    packed block, and against themselves on the CPU."""
+    rng = np.random.default_rng(3)
+    B, P, nrhs, bs = 2, 512, 4, mf_torch.PANEL
+    # a packed LU whose unit-lower and upper triangles are well conditioned
+    A = torch.from_numpy(rng.standard_normal((B, P, P)) / np.sqrt(P)
+                         + 4 * np.eye(P))
+    rhs = torch.from_numpy(rng.standard_normal((B, P, nrhs)))
+    for masked, plain in ((mf_torch.block_lower_apply_masked,
+                           mf_torch.block_lower_apply),
+                          (mf_torch.block_upper_apply_masked,
+                           mf_torch.block_upper_apply)):
+        out = {}
+        for dev in (card, torch.device("cpu")):
+            K = mf_torch.pack_diag_inv(A.to(dev), bs)
+            KD = mf_torch.extract_diag_blocks(K, bs)
+            r = rhs.to(dev)
+            out[dev.type] = masked(K, KD, r, 0, lambda t: t)
+            want = plain(K, r, bs)
+            assert out[dev.type].device.type == dev.type
+            torch.testing.assert_close(out[dev.type], want, rtol=1e-12,
+                                       atol=1e-12)
+        torch.testing.assert_close(out["cuda"].cpu(), out["cpu"],
+                                   rtol=1e-12, atol=1e-12)

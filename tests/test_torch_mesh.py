@@ -8,8 +8,9 @@ the sharded apply is ``apply`` bit for bit. Without a process group, more
 than one band raises: the sharded apply never computes on one device.
 
 ``band_world`` is what tests/test_torch_dist_stencil.py runs in each rank
-of a gloo world on the CPU (``spawn_world``). This file imports no jax, so
-the spawned ranks do not load it.
+of a gloo world on the CPU (``spawn_world``), ``solver_world`` what
+tests/test_torch_dist_solver.py runs. This file imports no jax, so the
+spawned ranks do not load it.
 """
 
 import os
@@ -88,16 +89,167 @@ def band_world(rank: int, world: int, store: str, op: StencilOperator,
         dist.destroy_process_group()
 
 
-def spawn_world(world: int, tmp_path, op: StencilOperator,
-                x: torch.Tensor, timeout_s: float = 240.0) -> list:
-    """``band_world`` in ``world`` spawned processes; the per-rank dicts.
-    Kills the ranks and fails after ``timeout_s``."""
-    out_dir = tmp_path / f"world{world}"
+class JaxFactors:
+    """Stands in for a JAX mesh engine in ``mf_torch.factors_from_jax`` on
+    a rank, which imports no jax: that engine's global factors as numpy
+    5-tuples, and the rounds it row-shards. ``plans`` are set on the rank
+    (the port's own, equal to the JAX engine's)."""
+
+    def __init__(self, factors, row_sharded):
+        self.factors = factors
+        self.rows = list(row_sharded)
+        self.plans = None
+
+    def _row_sharded(self, plan) -> bool:
+        return self.rows[next(i for i, p in enumerate(self.plans)
+                              if p is plan)]
+
+
+def _mesh_case(fac, B, gather: bool) -> dict:
+    """What tests/test_torch_dist_solver.py reads of one facade on a rank:
+    its solution of B, the layouts, shard shapes and resident bytes (with
+    the plan's), the refiner's decisions and, with ``gather``, the whole
+    factors."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        plan_memory)
+    eng = fac.engine
+    gf = eng.global_factors()
+    if gather:
+        gf = [tuple(t.clone() for t in f) for f in gf]
+    X = fac.solve(B)
+    out = dict(
+        X=X, stats=fac._refiner.stats,
+        layouts=[(lay.kind, lay.masked, lay.border) for lay in eng.layouts],
+        plans=[(p.B, p.P, p.N, p.M) for p in eng.plans],
+        shapes=[tuple(tuple(t.shape) for t in f) + (
+            None if kd is None else tuple(kd.shape),)
+            for f, kd in zip(eng.factors, eng.kd)],
+        resident=eng.resident_factor_bytes(),
+        planned=plan_memory(eng.plans, eng.ndev, eng.prec.itemsize,
+                            row_shard_min=eng.row_shard_min
+                            ).factor_bytes_per_device)
+    if gather:
+        out["factors"] = gf
+    return out
+
+
+def solver_world(rank: int, world: int, store: str, cases: dict,
+                 out_dir: str) -> None:
+    """One rank of a gloo world of ``world`` ranks running the mesh engine
+    through the facade on tests/test_dist_solver.py's fixtures (``cases``:
+    matrix file paths, the JAX stand-in and which optional cases run).
+    Writes what it saw to ``out_dir``/rank<r>.pt."""
+    torch.set_num_threads(1)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        load_ind_maps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
+        cuda_kernels as ck, mf_torch)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    init_process_group("cpu", rank, world, store)
+    try:
+        def load(path):
+            return read_matrix_file(path), load_ind_maps(path)
+
+        # the library LU must never run under a mesh
+        small = []
+        real_small = mf_torch.partial_factor_small_batch
+        mf_torch.partial_factor_small_batch = (
+            lambda *a, **k: small.append(1) or real_small(*a, **k))
+        matrix, maps = load(cases["transport"])
+        n = matrix.flat_len
+        out = {}
+        fac = MultifrontalFactorization(matrix, maps=maps, device="cpu",
+                                        n_devices=world)
+        out["default"] = _mesh_case(
+            fac, np.random.default_rng(5).standard_normal((n, 3)), False)
+        row = MultifrontalFactorization(matrix, maps=maps, device="cpu",
+                                        sym=fac.sym, n_devices=world,
+                                        row_shard_min=64)
+        B7 = np.random.default_rng(7).standard_normal((n, 3))
+        out["row"] = _mesh_case(row, B7, rank == 0)
+        out["small_lu_calls"] = len(small)
+        # round checkpoints under the mesh: the first rank writes every
+        # round (offload streams them back into each rank's layout), then
+        # a second engine on the directory loads them all and assembles
+        # nothing
+        ckdir = os.path.join(out_dir, "rounds")
+        kw = dict(maps=maps, device="cpu", sym=fac.sym, n_devices=world,
+                  row_shard_min=64, factor_checkpoint_dir=ckdir)
+        first = MultifrontalFactorization(matrix, **kw)
+        assembled = []
+        real_asm = ck.ell_assemble
+        ck.ell_assemble = lambda *a, **k: assembled.append(1) or real_asm(
+            *a, **k)
+        try:
+            again = MultifrontalFactorization(matrix, **kw)
+        finally:
+            ck.ell_assemble = real_asm
+        out["ckpt"] = dict(X=first.solve(B7), X_again=again.solve(B7),
+                           assembled=len(assembled),
+                           offload=first.engine._offload,
+                           files=sorted(os.listdir(ckdir)))
+        # the JAX mesh engine's factors, sliced to this rank, solved by
+        # the port's mesh engine
+        jf = cases["jax"]
+        eng = mf_torch.TorchMultifrontal(
+            row.sym, row._fac_matrix, torch.device("cpu"), factorize=False,
+            mesh=row.mesh, row_shard_min=64)
+        jf.plans = eng.plans
+        eng.set_factors(mf_torch.factors_from_jax(jf, "cpu", row.mesh))
+        out["from_jax"] = dict(Y=eng.solve(cases["engine_rhs"]),
+                               masked=[kd is not None for kd in eng.kd])
+        cm, cmaps = load(cases["coupled"])
+        cfac = MultifrontalFactorization(cm, maps=cmaps, device="cpu",
+                                         n_devices=world)
+        out["coupled"] = cfac.solve(
+            np.random.default_rng(9).standard_normal((cm.flat_len, 2)))
+        try:
+            MultifrontalFactorization(matrix, maps=maps, device="cpu",
+                                      sym=fac.sym, n_devices=8 * world)
+            out["too_many"] = None
+        except ValueError as e:
+            out["too_many"] = str(e)
+        if cases.get("f32"):
+            f32 = MultifrontalFactorization(matrix, maps=maps, device="cpu",
+                                            sym=fac.sym, n_devices=world,
+                                            precision="f32")
+            out["f32"] = _mesh_case(
+                f32, np.random.default_rng(9).standard_normal((n, 2)),
+                rank == 0)
+            out["f32"]["escalation"] = f32.escalation
+        if cases.get("rhs"):
+            rfac = MultifrontalFactorization(matrix, maps=maps, device="cpu",
+                                             sym=fac.sym, n_devices=world,
+                                             rhs_devices=2)
+            out["rhs"] = dict(
+                mesh=(rfac.mesh.axis_names, rfac.mesh.shape,
+                      rfac.mesh.coords),
+                X=rfac.solve(np.random.default_rng(21).standard_normal(
+                    (n, 4))))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_world(world: int, tmp_path, *args, target=band_world):
+    """Start ``target(rank, world, store, *args, out_dir)`` (``band_world``
+    by default, with args (op, x)) in ``world`` spawned processes; returns
+    the handle ``join_world`` takes."""
+    out_dir = tmp_path / f"{target.__name__}{world}"
     out_dir.mkdir()
     ctx = torch.multiprocessing.start_processes(
-        band_world, args=(world, str(out_dir / "store"), op, x,
-                          str(out_dir)),
+        target, args=(world, str(out_dir / "store"), *args, str(out_dir)),
         nprocs=world, join=False, start_method="spawn")
+    return ctx, world, out_dir
+
+
+def join_world(handle, timeout_s: float = 240.0) -> list:
+    """Wait for a started world; the per-rank dicts each rank saved as
+    out_dir/rank<r>.pt. Kills the ranks and fails after ``timeout_s``."""
+    ctx, world, out_dir = handle
     deadline = time.monotonic() + timeout_s
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
@@ -107,6 +259,13 @@ def spawn_world(world: int, tmp_path, op: StencilOperator,
                         f"{timeout_s:.0f} s")
     return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
+
+
+def spawn_world(world: int, tmp_path, *args, target=band_world,
+                timeout_s: float = 240.0) -> list:
+    """start_world, then join_world."""
+    return join_world(start_world(world, tmp_path, *args, target=target),
+                      timeout_s)
 
 
 @pytest.fixture(scope="module")

@@ -66,9 +66,10 @@ def tiny(tmp_path_factory):
     rounds = []
     real = mf_torch.partial_factor
 
-    def recording(F, P, p_arr, tau=0.0, pack_bs=mf_torch.PANEL):
+    def recording(F, P, p_arr, tau=0.0, pack_bs=mf_torch.PANEL,
+                  allow_native_lu=True):
         F0 = F.clone()
-        out = real(F, P, p_arr, tau, pack_bs)
+        out = real(F, P, p_arr, tau, pack_bs, allow_native_lu)
         rounds.append((F0, P, p_arr.clone(), tau, pack_bs, out))
         return out
 
@@ -186,8 +187,8 @@ def test_engine_border_waves(fixture_pair):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_fwd_round_matches_jax(fixture_pair, dtype):
     """The border subtraction sums each shared border cell's updates in
-    the order of the JAX scatter-add: fwd_round bit for bit with
-    mf_jax._fwd_round on a round with shared border cells. K is the
+    the order of the JAX scatter-add: fwd_local then fwd_store bit for bit
+    with mf_jax._fwd_round on a round with shared border cells. K is the
     identity and each row of L21 has one entry, so y and L21 @ y are exact
     in both packages and only the order of the border sums can differ
     (reversing the waves does change the bits)."""
@@ -211,15 +212,19 @@ def test_fwd_round_matches_jax(fixture_pair, dtype):
     want = mf_jax._fwd_round(jnp.asarray(W), *map(jnp.asarray, args), None,
                              jnp.asarray(plan.cells_own),
                              jnp.asarray(plan.cells_bor), bs=eng._pack_bs)
-    got = mf_torch.fwd_round(torch.from_numpy(W.copy()),
-                             *map(torch.from_numpy, args), cc["own"],
-                             cc["border"], eng._pack_bs)
+    Kt, _, L21t, permt = map(torch.from_numpy, args)
+
+    def fwd(border):
+        Wt = torch.from_numpy(W.copy())
+        y, upd = mf_torch.fwd_local(Wt, Kt, L21t, permt, cc["own"],
+                                    eng._pack_bs)
+        return mf_torch.fwd_store(Wt, y, upd, cc["own"], border)
+
+    got = fwd(cc["border"])
     n = eng.flat_len
     assert np.array_equal(got.numpy()[:n], np.asarray(want)[:n])
     src, dst, waves = cc["border"]
-    rev = mf_torch.fwd_round(torch.from_numpy(W.copy()),
-                             *map(torch.from_numpy, args), cc["own"],
-                             (src, dst, waves[::-1]), eng._pack_bs)
+    rev = fwd((src, dst, waves[::-1]))
     assert not np.array_equal(rev.numpy()[:n], np.asarray(want)[:n])
 
 

@@ -45,7 +45,8 @@ SCRIPT = (BLOCKER + textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     assert len(mods) >= 30, mods
-    for m in ("drivers.bench", "parallel.mesh", "parallel.demo"):
+    for m in ("drivers.bench", "parallel.mesh", "parallel.demo",
+              "parallel.collectives", "parallel.dryrun", "entry"):
         assert "{pkg}." + m in mods, m
 
     from {pkg}.drivers.gen_a import run_gen_a
@@ -74,12 +75,15 @@ SCRIPT = (BLOCKER + textwrap.dedent("""
     print("NOJAX_OK", len(mods), res)
 """)).replace("{pkg}", PKG).replace("{ref}", REF)
 
-# the bench driver at tiny on the CPU, and the mesh and the demo assembly
-# under one band, with jax and the JAX package blocked
+# the bench CLI at tiny on the CPU, the mesh and the demo assembly
+# under one band, the entry point's forward step, the collectives in a
+# world of one and the dry run's refusal of one rank, with jax and the JAX
+# package blocked
 DRIVERS_SCRIPT = (BLOCKER + textwrap.dedent("""
     import contextlib, io, json
     from {pkg}.drivers import bench
-    from {pkg}.parallel import StencilOperator, make_mesh
+    from {pkg}.entry import entry
+    from {pkg}.parallel import StencilOperator, collectives, dryrun, make_mesh
     from {pkg}.parallel.demo import make_demo_assembly
 
     out = io.StringIO()
@@ -95,6 +99,17 @@ DRIVERS_SCRIPT = (BLOCKER + textwrap.dedent("""
     x = torch.ones((op.nt,) + op.shape, dtype=torch.float64)
     y = unpad_field(layout.gather(apply_fn(layout.scatter(pad_field(x)))))
     assert torch.equal(y, op.apply(x))
+    fwd, (xf,) = entry("cpu")
+    assert fwd(xf).shape == xf.shape and xf.dtype == torch.float32
+    t = torch.arange(3.0)
+    assert collectives.all_gather(t, None) is t
+    assert collectives.all_reduce_sum(t, None) is t
+    assert collectives.exchange({}, {}, t, None) == {}
+    try:
+        dryrun.run(make_mesh(1, ("front",)), "cpu")
+        raise AssertionError("a dry run of one rank ran")
+    except ValueError:
+        pass
     assert not [m for m in sys.modules if blocked(m)]
     print("NOJAX_DRIVERS_OK", line["residual"])
 """)).replace("{pkg}", PKG).replace("{ref}", REF)

@@ -198,9 +198,10 @@ def tiny_f32(tmp_path_factory):
     rounds = []
     real = mf_torch.partial_factor
 
-    def recording(F, P, p_arr, tau=0.0, pack_bs=mf_torch.PANEL):
+    def recording(F, P, p_arr, tau=0.0, pack_bs=mf_torch.PANEL,
+                  allow_native_lu=True):
         F0 = F.clone()
-        out = real(F, P, p_arr, tau, pack_bs)
+        out = real(F, P, p_arr, tau, pack_bs, allow_native_lu)
         rounds.append((F0, P, p_arr.clone(), tau, pack_bs, out))
         return out
 

@@ -4,8 +4,9 @@ The workflow recipe (24x20x6, two tracers): gen_A writes the matrix, each
 driver solves a copy of the same tracer file in place. The outputs must
 agree, keep land cells bit-identical, and meet the 1e-10 residual
 contract; ``--factors`` writes, then loads the factors, ``--memplan``
-prints the JAX driver's lines, and the options that are not ported must
-exit with status 1.
+prints the JAX CLI's lines, and -n beyond the cards there are, or an
+rhs axis that does not divide the rank count, exits with status 1 (the
+distributed runs themselves are tests/test_torch_dist_cli.py's).
 """
 
 import shutil
@@ -91,13 +92,19 @@ def test_cli_residual(workflow, var):
     assert np.linalg.norm(A @ x - b) / np.linalg.norm(b) <= 1e-10
 
 
-@pytest.mark.parametrize("flags", [["-n", "2"], ["-n", "2,1"],
-                                   ["--rhs-devices", "2"]])
-def test_unported_options_exit_1(workflow, flags, capsys):
+@pytest.mark.parametrize("flags,msg", [
+    (["-n", "2", "--device", "cuda"], "requested 4 devices, have "),
+    (["-n", "2,1", "--device", "cuda"], "requested 2 devices, have "),
+    (["--rhs-devices", "2", "--device", "cpu"], "must divide n_devices=1")])
+def test_unported_options_exit_1(workflow, flags, msg, capsys):
+    """The distributed options are ported (tests/test_torch_dist_cli.py
+    runs them); what still exits 1 before any rank starts is -n beyond
+    the cards there are (none here, one on the card's machine) and an rhs
+    axis that does not divide the rank count."""
     mat, before, _ = workflow
-    rc = solve.main([*flags, "--device", "cpu", "-v", VARS[0], mat, before])
+    rc = solve.main([*flags, "-v", VARS[0], mat, before])
     assert rc == 1
-    assert "not yet ported to the torch package" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
 
 
 def test_run_solve_reports_residuals(workflow, tmp_path):
