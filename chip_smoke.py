@@ -9,8 +9,8 @@ its hand-written CUDA kernels on the way:
 1. device: a CUDA card must be present (no CPU fallback);
 2. build: compile the kernels from csrc/ with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the gx3 main path gives it and at tall panels (R = 4096 and
-   8192) that the panel kernel walks in column slabs (pivots, the
+   the shapes the gx3 main path gives it and at tall panels (R = 4096,
+   8192 and 13,824) that the panel kernel walks in column slabs (pivots, the
    composed permutation and values bit for bit, P A = L U for the panel),
    with kernel, plain and library times and the bound of each shape: the
    panel at f64 (K1) and f32 (K2), the assembly (K3) at both;
@@ -86,11 +86,36 @@ its hand-written CUDA kernels on the way:
    split against the mesh of one; (d) the dry run's main on a gloo world
    of 2 on the card (its sharded stencil on the card too, the halos going
    through the host). (b)-(d) go through the host: their times are not a
-   distribution speed.
+   distribution speed;
+12. the reference's own assembly configurations, through the port's gen_a
+   CLI on options files in the reference's format: (a) upwind3 advection
+   (its stage-1 test's options; the circulation's upwind3 transports
+   derived from its own velocities, testdata.transports) at gx3deep,
+   drivers.solve.run_solve over four tracers at f64, leaf 32: every
+   residual <= 1e-10 in long double, land cells unchanged, launches as
+   the plans say, cold and steady factor with a synchronized stage
+   breakdown of one steady refactor, the 4-RHS solve, the refiner's
+   phases, peak memory against plan_memory, K1 and K3 bit for bit and
+   timed at its shapes; (b) the same at f32: the float64 substitution
+   (_hi_round) on exactly the rounds with P >= HI_ROUND_MIN_P in every
+   f32 sweep, the refiner's tier (plain IR, fused f32 FGMRES, or the
+   escalation to f64), K2 and K3-f32 bit for bit and timed; (c) the
+   same matrix on the mesh engine in an NCCL world of one: K1 on every
+   round, the tree-top panels (taller than 4096 rows, in column slabs)
+   bit for bit with the plain version, the tallest panel's launch config,
+   solutions within 1e-9 of (a)'s largest entry; (d) the coupled PO4-DOP
+   pair at gx3 (d_J_A_d_B from the tracer file), run_solve -v
+   OCMIP_BGC_PO4,OCMIP_BGC_DOP at f64: each tracer's own rows of the
+   residual <= 1e-10, land cells bit for bit, both tracers written, the
+   steady refactor and its stage breakdown;
+   (e) the NK loop at gx3deep at f32, 3 iterations: each refactor's
+   launches at its factor dtype, which iteration escalated, every
+   residual <= 1e-10, K2 and K3-f32 at the loop's shapes.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel results (K1 and K3-f64 twice: the gx3 main path, and the mesh
-path of phase 11a), and as its last line
+path of phase 11a; then a row per kernel and path of phase 12, with a
+"path" key), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises: the script then exits non-zero without that line.
 
@@ -138,13 +163,31 @@ BENCH_SIZE = "gx3"
 UPDATE_W2 = dict(adv_type="upwind3", hmix_type="isop_file",
                  vmix_type="matrix_file")
 TRACERS = ("IAGE_CUR", "PO4_CUR", "DOP_CUR", "O2_CUR")
+# the reference's own assembly configurations (phase 12): options files in
+# the reference's format (drivers/config.py) for its stage-1 test's upwind3
+# advection, and for the coupled PO4-DOP pair with its cross-tracer
+# derivatives read from the tracer file
+UPWIND3_OPTS = ("adv_type upwind3\nhmix_type isop_file\nvmix_type file\n"
+                "sink_type const 1.21e-4\n")
+COUPLED = ("OCMIP_BGC_PO4", "OCMIP_BGC_DOP")
+COUPLED_OPTS = ("adv_type centered\nhmix_type isop_file\nvmix_type file\n"
+                "tracer_fname {tracer}\ncoupled_tracer_cnt 2\n"
+                "coupled_tracer_type OCMIP_BGC_PO4_DOP\n"
+                "tracer_ind 0\nsink_type const 1.21e-4\n"
+                "tracer_ind 1\nsink_type const 2.0e-4\n")
 # panel shapes (B, R, T, off): tests/test_pallas_kernels.py's cases, gx3
 # plan panels with B > 2, and tall panels that the kernel walks in column
-# slabs (R = 4096 and 8192)
+# slabs (R = 4096, 8192, and 13,824: phase 12's widest front as one panel,
+# 8-column slabs at f64)
 PANEL_SHAPES = [(4, 256, 128, 128), (3, 128, 128, 0), (2, 512, 64, 0),
                 (2, 128, 128, 0), (256, 512, 128, 0), (16, 640, 128, 0),
                 (16, 128, 128, 512), (4, 128, 128, 640), (3, 4096, 128, 0),
-                (4, 8192, 128, 0)]
+                (4, 8192, 128, 0), (1, 13824, 128, 0)]
+
+
+# panels taller than this were run on the card only as forced shapes
+# (phase 3) before phase 12c's tree-top rounds
+TALL_R = 4096
 
 
 # published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM
@@ -256,16 +299,33 @@ def panel_backward_error(A, Pp, piv) -> float:
     return float((L @ U - A).abs().max())
 
 
+def once_ms(fn) -> float:
+    """The device time of one call of fn() in ms, from CUDA events around
+    it."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def check_panel(ck, device, sfx, B, R, T, off, p_arr, tau, seed):
     """Kernel vs plain on one random panel, required bit for bit (values,
-    piv and perm): returns (max abs difference, the input panel)."""
+    piv and perm): returns (max abs difference, the input panel, the
+    plain version's ms on it: a launch-bound loop of T steps, timed once
+    here rather than run again)."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
     Pan = torch.randn((B, R, T), generator=g,
                       dtype=getattr(torch, DTYPES[sfx]), device=device)
     Pk, pk, permk = ck.pivoted_panel(Pan, off, p_arr, tau)
-    Pp, pp, permp = ck.pivoted_panel_plain(Pan, off, p_arr, tau)
-    sync(device)
+    plain = []
+    t_plain = once_ms(lambda: plain.extend(ck.pivoted_panel_plain(
+        Pan, off, p_arr, tau)))
+    Pp, pp, permp = plain
     name = KID[sfx]
     if not torch.equal(pk, pp):
         raise AssertionError(f"{name} {B, R, T, off} tau={tau}: pivots "
@@ -277,7 +337,7 @@ def check_panel(ck, device, sfx, B, R, T, off, p_arr, tau, seed):
         raise AssertionError(f"{name} {B, R, T, off} tau={tau}: values "
                              f"differ from the plain version by "
                              f"{float((Pk - Pp).abs().max()):.3e}")
-    return float((Pk - Pp).abs().max()), Pan
+    return float((Pk - Pp).abs().max()), Pan, t_plain
 
 
 def panel_shapes(plans) -> dict:
@@ -311,12 +371,12 @@ def phase_panel(ck, device, plans, sfx: str) -> dict:
         mixed = torch.tensor(np.linspace(0, off + R, B).astype(np.int32),
                              device=device)
         for tau in (0.0, 0.05):
-            e, _ = check_panel(ck, device, sfx, B, R, T, off, mixed, tau,
-                               i)
+            e, _, _ = check_panel(ck, device, sfx, B, R, T, off, mixed,
+                                  tau, i)
             err = max(err, e)
         full = torch.full((B,), off + R, dtype=torch.int32, device=device)
-        _, Pan = check_panel(ck, device, sfx, B, R, T, off, full, 0.0,
-                             100 + i)
+        _, Pan, _ = check_panel(ck, device, sfx, B, R, T, off, full, 0.0,
+                                100 + i)
         Pk, pk, _ = ck.pivoted_panel(Pan, off, full, 0.0)
         bwd = panel_backward_error(Pan, Pk, pk)
         if not bwd <= LU_BOUND[sfx]:
@@ -334,8 +394,8 @@ def phase_panel(ck, device, plans, sfx: str) -> dict:
     bound_by = set()
     for i, ((B, R, T, off), (count, pa)) in enumerate(sorted(shapes.items())):
         p_arr = torch.from_numpy(pa).to(device)
-        e, Pan = check_panel(ck, device, sfx, B, R, T, off, p_arr, 0.05,
-                             200 + i)
+        e, Pan, _ = check_panel(ck, device, sfx, B, R, T, off, p_arr,
+                                0.05, 200 + i)
         err = max(err, e)
         t_k = event_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05), 20)
         t_w = median_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05),
@@ -518,34 +578,50 @@ def phase_fused(fac, matrix, B, X_ref) -> None:
 # phases 5 and 6: the main path at gx3, f64 and f32
 # --------------------------------------------------------------------------
 
-def check_tracers(mat: str, before: str, after: str):
-    """Residual of every tracer of ``after`` (solved from ``before``),
-    land cells unchanged; returns ({tracer: residual}, A, B)."""
+def check_tracers(mat: str, before: str, after: str, groups=None):
+    """Residual of every tracer of ``after`` (solved from ``before``), in
+    long double, land cells unchanged; returns ({tracer: residual}, A, B).
+    ``groups`` lists the variable groups solved together (the coupled
+    tracers of one system; by default each of TRACERS alone): B has a
+    column per group, and each tracer's residual is that of its own rows,
+    ||(A x - b)_t|| / ||b_t||."""
     from scipy.io import netcdf_file
     from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
     from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
         read_matrix_file)
+    if groups is None:
+        groups = [(v,) for v in TRACERS]
     matrix = read_matrix_file(mat)
     maps = load_ind_maps(mat)
     A = matrix.to_scipy()
+    A_ld = A.astype(np.longdouble)
+    tsl = maps.tracer_state_len
     land = maps.int3_to_ind < 0
     res = {}
-    Bm = np.empty((matrix.flat_len, len(TRACERS)))
+    Bm = np.empty((matrix.flat_len, len(groups)))
     with netcdf_file(before, "r", mmap=False) as f0, \
             netcdf_file(after, "r", mmap=False) as f1:
-        for j, v in enumerate(TRACERS):
-            old = np.array(f0.variables[v].data, dtype=np.float64)
-            new = np.array(f1.variables[v].data, dtype=np.float64)
-            if not np.array_equal(old[land], new[land]):
-                raise AssertionError(f"{v}: land cells changed")
-            b, x = maps.flatten_field(old), maps.flatten_field(new)
-            if not np.all(np.isfinite(x)) or x.shape != b.shape:
-                raise AssertionError(f"{v}: bad solution")
-            res[v] = float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
-            if not res[v] <= 1e-10:
-                raise AssertionError(f"{v}: relative residual "
-                                     f"{res[v]:.3e} > 1e-10")
-            Bm[:, j] = b
+        for j, group in enumerate(groups):
+            xs = []
+            for t, v in enumerate(group):
+                old = np.array(f0.variables[v].data, dtype=np.float64)
+                new = np.array(f1.variables[v].data, dtype=np.float64)
+                if not np.array_equal(old[land], new[land]):
+                    raise AssertionError(f"{v}: land cells changed")
+                b, x = maps.flatten_field(old), maps.flatten_field(new)
+                if not np.all(np.isfinite(x)) or x.shape != b.shape:
+                    raise AssertionError(f"{v}: bad solution")
+                Bm[t * tsl:(t + 1) * tsl, j] = b
+                xs.append(x)
+            r = (A_ld @ np.concatenate(xs).astype(np.longdouble)
+                 - Bm[:, j].astype(np.longdouble)).astype(np.float64)
+            for t, v in enumerate(group):
+                rows = slice(t * tsl, (t + 1) * tsl)
+                res[v] = float(np.linalg.norm(r[rows])
+                               / np.linalg.norm(Bm[rows, j]))
+                if not res[v] <= 1e-10:
+                    raise AssertionError(f"{v}: relative residual "
+                                         f"{res[v]:.3e} > 1e-10")
     return res, A, Bm
 
 
@@ -564,6 +640,16 @@ def expect_launches(launches: dict, plans, sfxs) -> None:
                                      f"want {want if on else 0}")
 
 
+def max_rel(A, X, B) -> float:
+    """The largest relative residual over the columns, with A X - B in
+    long double (float64's own rounding of the product reaches 4.8e-10
+    for one gx3deep right-hand side, drivers.nk_loop.residual)."""
+    ld = np.longdouble
+    r = (A.astype(ld) @ X.astype(ld) - B.astype(ld)).astype(np.float64)
+    return float((np.linalg.norm(r, axis=0)
+                  / np.linalg.norm(B, axis=0)).max())
+
+
 def steady(fac, A, Bm) -> dict:
     """The steady refactor and one 4-RHS refined solve, timed."""
     t0 = time.perf_counter()
@@ -572,9 +658,9 @@ def steady(fac, A, Bm) -> dict:
     t0 = time.perf_counter()
     X = fac.solve(Bm)           # ends in a copy to the host
     t_solve = time.perf_counter() - t0
-    rel = np.linalg.norm(A @ X - Bm, axis=0) / np.linalg.norm(Bm, axis=0)
-    if not rel.max() <= 1e-10:
-        raise AssertionError(f"steady solve residual {rel.max():.3e}")
+    rel = max_rel(A, X, Bm)
+    if not rel <= 1e-10:
+        raise AssertionError(f"steady solve residual {rel:.3e}")
     # one solve's wall time varies by tens of ms between calls: the
     # median of this and four more
     times = [t_solve]
@@ -584,7 +670,7 @@ def steady(fac, A, Bm) -> dict:
         times.append(time.perf_counter() - t0)
     return dict(steady_factor_s=t_steady, solve_4rhs_s=t_solve,
                 solve_4rhs_median_s=float(np.median(times)),
-                steady_max_residual=float(rel.max()),
+                steady_max_residual=rel,
                 steady_refiner=dict(fac._refiner.stats))
 
 
@@ -687,62 +773,79 @@ def device_busy(fac, device) -> dict:
                 top_kernels_by_count=top)
 
 
-def phase_main(ck, device, mat: str, tracer: str, precision: str,
-               phase: int) -> dict:
-    """drivers.solve.run_solve over the four tracers at ``precision``,
-    from a copy of the original tracer file; returns the launch counts of
-    the run and the phase's numbers."""
+def reference_solve(ck, device, mat: str, tracer: str, vars_arg: str,
+                    precision: str, groups=None) -> dict:
+    """drivers.solve.run_solve of ``vars_arg`` at ``precision`` on a copy
+    of ``tracer``, the counts set to 0 just before it and read just
+    after; the written file checked (check_tracers) and the launches held
+    against the plans. Returns what it saw, the facade included."""
     import torch
     from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.solve import (
         run_solve)
-
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        plan_memory)
     out_file = f"{tracer}.{precision}.nc"
     shutil.copy(tracer, out_file)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
-    for k in ck.LAUNCHES:
-        ck.LAUNCHES[k] = 0
+    reset_counts(ck, device)
     t0 = time.perf_counter()
-    out = run_solve(mat, out_file, ",".join(TRACERS), device=device,
+    out = run_solve(mat, out_file, vars_arg, device=device,
                     precision=precision)
     t_run = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
     fac = out["factorization"]
     plans = fac.engine.plans
     escalated = fac.escalation is not None
-    if precision == "f64":
-        expect_launches(launches, plans, ("f64",))
-    else:
-        expect_launches(launches, plans,
-                        ("f32", "f64") if escalated else ("f32",))
+    expect_launches(launches, plans, ("f32", "f64") if escalated
+                    else (precision,))
     fac.validate()
-    res, A, Bm = check_tracers(mat, tracer, out_file)
-    peak_cold = torch.cuda.max_memory_allocated(device)
-    run_refiner = dict(fac._refiner.stats)
+    res, A, Bm = check_tracers(mat, tracer, out_file, groups)
     t = fac.timings
-    stats = dict(
-        precision=precision, factor_dtype=str(fac.engine.prec),
-        escalated=escalated, escalation=fac.escalation,
-        flat_len=A.shape[0], nnz=A.nnz,
-        rounds=len(plans), max_P=max(p.P for p in plans),
-        max_N=max(p.N for p in plans), run_solve_s=t_run,
-        symbolic_s=t["symbolic"], escalate_s=t.get("escalate"),
+    return dict(
+        fac=fac, A=A, Bm=Bm, out_file=out_file, launches=launches,
+        flat_len=A.shape[0], nnz=A.nnz, rounds=[(p.B, p.P, p.N)
+                                                for p in plans],
+        max_W=max(p.a_col.shape[2] for p in plans),
+        run_solve_s=t_run, symbolic_s=t["symbolic"],
         cold_factor_s=t["equilibrate"] + t["plan"] + t["factor"],
-        run_refiner=run_refiner, max_residual=float(max(res.values())),
-        peak_mem_gb=peak_cold / 1e9)
-    stats.update(steady(fac, A, Bm))
+        escalated=escalated, escalation=fac.escalation,
+        escalate_s=t.get("escalate"), refiner=dict(fac._refiner.stats),
+        residuals=res, peak_mem_gb=peak / 1e9,
+        plan_peak_gb=plan_memory(plans, 1, 8 if precision == "f64"
+                                 or escalated else 4).peak_per_device / 1e9)
+
+
+def brief(stats: dict) -> dict:
+    """``stats`` without the objects reference_solve hands back."""
+    return {k: v for k, v in stats.items()
+            if k not in ("fac", "A", "Bm", "out_file")}
+
+
+def phase_main(ck, device, mat: str, tracer: str, precision: str,
+               phase: int) -> dict:
+    """drivers.solve.run_solve over the four tracers at ``precision``,
+    from a copy of the original tracer file (``reference_solve``), then
+    the steady refactor and solve; returns the launch counts of the run
+    and the phase's numbers."""
+    import torch
+    st = reference_solve(ck, device, mat, tracer, ",".join(TRACERS),
+                         precision)
+    fac = st["fac"]
+    stats = dict(precision=precision, factor_dtype=str(fac.engine.prec),
+                 **brief(st))
+    stats.update(steady(fac, st["A"], st["Bm"]))
     if precision == "f64":
         stats["breakdown"] = stage_breakdown(fac, device)
         try:
             stats["profile"] = device_busy(fac, device)
         except Exception as e:  # noqa: BLE001 - a measurement, not a check
             stats["profile"] = f"not measured ({type(e).__name__}: {e})"
-    stats.update(peak_mem_after_refactor_gb=torch.cuda.max_memory_allocated(
-        device) / 1e9, launches=launches)
-    if precision == "f32" and escalated:
+    stats["peak_mem_after_refactor_gb"] = torch.cuda.max_memory_allocated(
+        device) / 1e9
+    if precision == "f32" and st["escalated"]:
         stats.update(f32_alone(fac, device))
     say(f"phase {phase} main path gx3 {precision}: " + json.dumps(stats))
-    return launches, stats
+    return st["launches"], stats
 
 
 def f32_alone(fac, device) -> dict:
@@ -804,14 +907,14 @@ def timed_line(log: str, name: str) -> float:
     raise AssertionError(f"no '{name}' timing in the log")
 
 
-def solutions(mat: str, tracer_file: str) -> np.ndarray:
-    """The four tracers of a solved file, flattened, as columns."""
+def solutions(mat: str, tracer_file: str, names=TRACERS) -> np.ndarray:
+    """The tracers ``names`` of a tracer file, flattened, as columns."""
     from scipy.io import netcdf_file
     from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import load_ind_maps
     maps = load_ind_maps(mat)
     with netcdf_file(tracer_file, "r", mmap=False) as f:
         return np.stack([maps.flatten_field(np.array(
-            f.variables[v].data, dtype=np.float64)) for v in TRACERS], 1)
+            f.variables[v].data, dtype=np.float64)) for v in names], 1)
 
 
 def reset_counts(ck, device) -> None:
@@ -1070,43 +1173,50 @@ def refactor_round_peaks(ck, fac, device) -> list:
     return peaks[1:]    # [0]: before round 0 (the old factors' release)
 
 
-def refactor_kernel_ms(ck, device, plans, nzval) -> dict:
-    """K1 and K3 (f64) on every shape one refactor over ``plans`` gives
-    them, timed as phase 3 times them (CUDA events over back-to-back
-    launches; random panels with each round's p_arr, the real values for
-    K3), with the plain version's and the library call's times, summed
-    over the refactor with each shape's bound. Every panel shape and every
-    round's fronts are held bit for bit against the plain version first."""
+def refactor_kernel_ms(ck, device, plans, nzval, sfx: str = "f64") -> dict:
+    """The panel kernel (K1 at f64, K2 at f32) and K3 at ``sfx`` on every
+    shape one refactor over ``plans`` gives them, timed as phase 3 times
+    them (CUDA events over back-to-back launches; random panels with each
+    round's p_arr, the real values for K3), with the plain version's and
+    the library call's times, summed over the refactor with each shape's
+    bound. Every panel shape and every round's fronts are held bit for
+    bit against the plain version first."""
     import torch
     k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, panels=0,
               shapes_bitwise=0)
+    bound_by = set()
     for i, ((B, R, T, off), (count, pa)) in enumerate(
             sorted(panel_shapes(plans).items())):
         p_arr = torch.from_numpy(pa).to(device)
-        _, Pan = check_panel(ck, device, "f64", B, R, T, off, p_arr, 0.05,
-                             300 + i)
+        _, Pan, t_plain = check_panel(ck, device, sfx, B, R, T, off, p_arr,
+                                      0.05, 300 + i)
         k1["shapes_bitwise"] += 1
         t = event_ms(lambda: ck.pivoted_panel(Pan, off, p_arr, 0.05), 5)
         k1["ms"] += count * t
-        k1["plain_ms"] += count * event_ms(
-            lambda: ck.pivoted_panel_plain(Pan, off, p_arr, 0.05), 1)
+        k1["plain_ms"] += count * t_plain
         k1["library_ms"] += count * event_ms(lambda: library_panel(Pan), 3)
-        k1["bound_ms"] += count * panel_bound(B, R, T, "f64")[0]
+        b_ms, b_by = panel_bound(B, R, T, sfx)
+        k1["bound_ms"] += count * b_ms
+        bound_by.add(b_by)
         k1["panels"] += count
         del Pan
-    return dict(K1=k1, K3=assemble_kernel_ms(ck, device, plans, nzval))
+    k1["bound_by"] = "/".join(sorted(bound_by))
+    return dict(K1=k1, K3=assemble_kernel_ms(ck, device, plans, nzval, sfx))
 
 
-def assemble_kernel_ms(ck, device, plans, nzval) -> dict:
-    """K3 (f64) on every round of ``plans`` with the real values, held bit
-    for bit against its plain version, then timed as phase 3 times it with
-    the plain, library and bound times, summed over one factor."""
+def assemble_kernel_ms(ck, device, plans, nzval, sfx: str = "f64") -> dict:
+    """K3 at ``sfx`` on every round of ``plans`` with the real values
+    (in the factor dtype), held bit for bit against its plain version,
+    then timed as phase 3 times it with the plain, library and bound
+    times, summed over one factor; with the rounds' largest ELL width."""
     import torch
     nz = np.zeros(len(nzval) + 1)
     nz[:-1] = nzval
-    nzd = torch.from_numpy(nz).to(device)
+    nzd = torch.from_numpy(nz).to(device=device,
+                                  dtype=getattr(torch, DTYPES[sfx]))
     k3 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-              rounds=len(plans))
+              rounds=len(plans), bound_by="bytes",
+              max_W=max(p.a_col.shape[2] for p in plans))
     for rnd, p in enumerate(plans):
         args = [torch.from_numpy(a).to(device=device, dtype=torch.int64)
                 for a in (p.a_col, p.a_csrc, p.a_pos, p.a_src)]
@@ -1115,7 +1225,7 @@ def assemble_kernel_ms(ck, device, plans, nzval) -> dict:
         if not torch.equal(
                 ck.ell_assemble(nzd, *args, p_arr, p.N, p.P, spill),
                 ck.ell_assemble_plain(nzd, *args, p_arr, p.N, p.P, spill)):
-            raise AssertionError(f"K3 f64 round {rnd} {(p.B, p.P, p.N)}: "
+            raise AssertionError(f"K3 {sfx} round {rnd} {(p.B, p.P, p.N)}: "
                                  f"fronts differ from the plain version")
         k3["ms"] += event_ms(lambda: ck.ell_assemble(nzd, *args, p_arr, p.N,
                                                      p.P, spill), 3)
@@ -1123,7 +1233,7 @@ def assemble_kernel_ms(ck, device, plans, nzval) -> dict:
             nzd, *args, p_arr, p.N, p.P, spill), 2)
         k3["library_ms"] += event_ms(lambda: library_assemble(
             nzd, args[0], args[1], p.B, p.N), 3)
-        k3["bound_ms"] += assemble_bound(p, len(nzval), "f64")[0]
+        k3["bound_ms"] += assemble_bound(p, len(nzval), sfx)[0]
     return k3
 
 
@@ -1435,43 +1545,44 @@ def phase_mesh(device, work: Path, asm, card: str) -> dict:
 # phase 11: the mesh engine (an NCCL world of one, gloo worlds on the card)
 # --------------------------------------------------------------------------
 
-def mesh_kernel_ms(ck, device, plans, nzval) -> dict:
-    """K1 on every panel of the rounds with B <= 2 (which the mesh engine
-    factors with the panel kernel where the single-device engine takes
-    the library LU), with the tallest panel and whether the kernel walked
-    it in column slabs, and K3 on every round of the mesh engine's
-    ``plans``; each held bit for bit against its plain version, then
+def treetop_panel_ms(ck, device, plans, seed: int = 400) -> dict:
+    """K1 on every panel of the rounds with B <= 2 (which a mesh engine
+    factors with the panel kernel where the single-device engine takes the
+    library LU), each held bit for bit against its plain version, then
     timed as phase 3 times them, with the plain, library and bound times,
-    summed over one factor."""
+    summed over one factor; with the tallest panel's launch config (C,
+    nb) and the count of panels taller than TALL_R rows."""
     import torch
     k1 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, panels=0,
-              tallest_R=0, slab=False)
+              tallest_R=0, tallest_config=None, slab=False, tall=0)
     for p in plans:
         if p.B > 2:
             continue
         p_arr = torch.from_numpy(p.p_arr).to(device)
         for off in range(0, p.P, 128):
             B, R, T = p.B, p.P - off, min(128, p.P - off)
-            _, Pan = check_panel(ck, device, "f64", B, R, T, off, p_arr,
-                                 0.05, 400 + k1["panels"])
+            _, Pan, t_plain = check_panel(ck, device, "f64", B, R, T, off,
+                                          p_arr, 0.05, seed + k1["panels"])
             k1["ms"] += event_ms(lambda: ck.pivoted_panel(Pan, off, p_arr,
                                                           0.05), 5)
-            k1["plain_ms"] += event_ms(
-                lambda: ck.pivoted_panel_plain(Pan, off, p_arr, 0.05), 1)
+            k1["plain_ms"] += t_plain
             k1["library_ms"] += event_ms(lambda: library_panel(Pan), 3)
             k1["bound_ms"] += panel_bound(B, R, T, "f64")[0]
             k1["panels"] += 1
+            k1["tall"] += R > TALL_R
             if R > k1["tallest_R"]:
-                k1["tallest_R"] = R
-                k1["slab"] = ck.panel_launch_config(
-                    B, R, T, 8, ck.active_clusters)[1] < T
+                C, nb = ck.panel_launch_config(B, R, T, 8,
+                                               ck.active_clusters)
+                k1.update(tallest_R=R, tallest_config=(C, nb), slab=nb < T)
             del Pan
-    return dict(K1=k1, K3=assemble_kernel_ms(ck, device, plans, nzval))
+    return k1
 
 
-def max_rel(A, X, B) -> float:
-    return float((np.linalg.norm(A @ X - B, axis=0)
-                  / np.linalg.norm(B, axis=0)).max())
+def mesh_kernel_ms(ck, device, plans, nzval) -> dict:
+    """K1 on the tree-top panels (``treetop_panel_ms``) and K3 on every
+    round of the mesh engine's ``plans``."""
+    return dict(K1=treetop_panel_ms(ck, device, plans),
+                K3=assemble_kernel_ms(ck, device, plans, nzval))
 
 
 def solutions_agree(X, X1, what: str) -> float:
@@ -1773,6 +1884,384 @@ def phase_gloo_worlds(ck, device, work: Path, mat: str, card: str) -> dict:
     return stats
 
 
+# --------------------------------------------------------------------------
+# phase 12: the reference's own assembly configurations
+# --------------------------------------------------------------------------
+
+def make_config(d: Path, dims: dict, body: str, tracers, upwind3: bool):
+    """A circulation file of seed 7 at ``dims`` (its upwind3 transports
+    derived from its own velocities when ``upwind3``), a tracer file of
+    ``tracers`` (with the coupled derivatives d_J_A_d_B of the PO4-DOP
+    pair when those are the tracers), an options file of ``body`` in the
+    reference's format, and the port's gen_a CLI on it: (matrix path,
+    tracer path, gen_A seconds)."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import gen_a
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.testdata import (
+        make_circ_file, make_tracer_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.testdata.transports import (
+        derive_upwind3_transports)
+    d.mkdir()
+    circ, tracer = str(d / "circ.nc"), str(d / "tracer.nc")
+    mat, opts = str(d / "matrix.nc"), d / "opts.txt"
+    make_circ_file(circ, seed=7, **dims)
+    if upwind3:
+        derive_upwind3_transports(circ)
+    coupled = tuple(tracers) == COUPLED
+    make_tracer_file(tracer, dims["imt"], dims["jmt"], dims["km"],
+                     tracer_names=tracers, seed=7,
+                     coupled_names=(COUPLED, COUPLED[::-1]) if coupled
+                     else ())
+    opts.write_text(f"circ_fname {circ}\n" + body.format(tracer=tracer))
+    t0 = time.perf_counter()
+    if gen_a.main(["-o", str(opts), mat]) != 0:
+        raise AssertionError(f"gen_a -o {opts} failed")
+    return mat, tracer, time.perf_counter() - t0
+
+
+def phase_upwind3(ck, device, work: Path, card: str) -> dict:
+    """12a-c: the upwind3 options file at gx3deep through the port's gen_a
+    CLI, then (a) run_solve over the four tracers at f64, (b) at f32, (c)
+    the facade on the mesh engine in an NCCL world of one rank."""
+    import torch
+    import torch.distributed as dist
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        load_ind_maps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.parallel import (
+        init_process_group, make_mesh)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf_torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        plan_memory)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    mat, tracer, t_gen = make_config(work / "upwind3", GX3DEEP, UPWIND3_OPTS,
+                                     TRACERS, upwind3=True)
+    vars_arg = ",".join(TRACERS)
+
+    # (a) f64, single device
+    a = reference_solve(ck, device, mat, tracer, vars_arg, "f64")
+    fac = a["fac"]
+    plans = fac.engine.plans
+    a.update(gen_a_s=t_gen, **steady(fac, a["A"], a["Bm"]))
+    a["breakdown"] = stage_breakdown(fac, device)
+    kern64 = refactor_kernel_ms(ck, device, plans, fac._fac_matrix.nzval)
+    sym, A, Bm = fac.sym, a["A"], a["Bm"]
+    X64 = solutions(mat, a["out_file"])
+    say(f"phase 12a upwind3 gx3deep f64 {tuple(GX3DEEP.values())}: gen_A "
+        f"{t_gen:.2f} s, flat_len {a['flat_len']}, nnz {a['nnz']} "
+        f"({a['nnz'] / a['flat_len']:.2f} a row), ELL width {a['max_W']}, "
+        f"rounds (B, P, N) {a['rounds']}")
+    say(f"phase 12a: cold factor {a['cold_factor_s']:.3f} s, steady factor "
+        f"{a['steady_factor_s']:.4f} s, 4-RHS solve {a['solve_4rhs_s']:.4f} "
+        f"s (median of 5 {a['solve_4rhs_median_s']:.4f} s), residuals "
+        f"{a['residuals']} (long double), refiner {a['refiner']}; peak "
+        f"{a['peak_mem_gb']:.2f} GB against plan_memory "
+        f"{a['plan_peak_gb']:.2f} GB; K1 {a['launches']['pivoted_panel_f64']}"
+        f" and K3 {a['launches']['ell_assemble_f64']} launches; K1 "
+        f"{kern64['K1']['ms']:.3f} ms per factor ({kern64['K1']['panels']} "
+        f"panels, bound {kern64['K1']['bound_ms']:.4f}, plain "
+        f"{kern64['K1']['plain_ms']:.1f}, lu_factor_ex "
+        f"{kern64['K1']['library_ms']:.3f}), K3 {kern64['K3']['ms']:.3f} ms "
+        f"(bound {kern64['K3']['bound_ms']:.4f}, plain "
+        f"{kern64['K3']['plain_ms']:.3f}, index_put_ "
+        f"{kern64['K3']['library_ms']:.3f}), all bitwise equal; "
+        f"synchronized refactor {a['breakdown']['synced_refactor_ms']:.1f} "
+        f"ms, exclusive ms {a['breakdown']['stages_ms']} [{card}]")
+    del fac, a["fac"]
+    torch.cuda.empty_cache()
+
+    # (b) f32: the rounds with P >= HI_ROUND_MIN_P substitute in float64
+    hi_want = {r for r, p in enumerate(plans)
+               if p.P >= mf_torch.HI_ROUND_MIN_P}
+    if not hi_want:
+        raise AssertionError("upwind3 gx3deep has no round with P >= "
+                             f"{mf_torch.HI_ROUND_MIN_P}")
+    swept = []
+    real_fwd = mf_torch.TorchMultifrontal._fwd
+
+    def fwd(self, rnd, W, cc, hi):
+        if self.prec == torch.float32:
+            swept.append((rnd, hi))
+        return real_fwd(self, rnd, W, cc, hi)
+    mf_torch.TorchMultifrontal._fwd = fwd
+    try:
+        b = reference_solve(ck, device, mat, tracer, vars_arg, "f32")
+    finally:
+        mf_torch.TorchMultifrontal._fwd = real_fwd
+    n = len(plans)
+    sweeps = [swept[i:i + n] for i in range(0, len(swept), n)]
+    if not sweeps or any({r for r, hi in s if hi} != hi_want
+                         or [r for r, _ in s] != list(range(n))
+                         for s in sweeps):
+        raise AssertionError(f"f32 sweeps ran _hi_round on "
+                             f"{[sorted(r for r, hi in s if hi) for s in sweeps]}"
+                             f", want {sorted(hi_want)}")
+    refiner32 = (b["escalation"]["refiner"] if b["escalated"]
+                 else b["refiner"])
+    b["tier"] = ("escalated to f64" if b["escalated"] else
+                 "fused f32 FGMRES" if "gmres" in refiner32["phases"]
+                 else "plain IR")
+    kern32 = refactor_kernel_ms(ck, device, plans,
+                                b["fac"]._fac_matrix.nzval, "f32")
+    say(f"phase 12b upwind3 gx3deep f32: {len(sweeps)} f32 sweep(s), each "
+        f"with _hi_round on exactly the rounds with P >= "
+        f"{mf_torch.HI_ROUND_MIN_P} {sorted(hi_want)} "
+        f"{[plans[r].P for r in sorted(hi_want)]}; tier: {b['tier']} "
+        f"(f32 refiner {refiner32}); K2 "
+        f"{b['launches']['pivoted_panel_f32']} and K3-f32 "
+        f"{b['launches']['ell_assemble_f32']} launches per f32 factor (K1 "
+        f"{b['launches']['pivoted_panel_f64']}, K3-f64 "
+        f"{b['launches']['ell_assemble_f64']} after escalation); cold "
+        f"{b['cold_factor_s']:.3f} s, escalate {b['escalate_s']} s, "
+        f"run_solve {b['run_solve_s']:.2f} s; residuals {b['residuals']}; "
+        f"peak {b['peak_mem_gb']:.2f} GB; K2 {kern32['K1']['ms']:.3f} ms "
+        f"per factor (bound {kern32['K1']['bound_ms']:.4f}, plain "
+        f"{kern32['K1']['plain_ms']:.1f}, lu_factor_ex "
+        f"{kern32['K1']['library_ms']:.3f}), K3-f32 "
+        f"{kern32['K3']['ms']:.3f} ms (bound "
+        f"{kern32['K3']['bound_ms']:.4f}, plain "
+        f"{kern32['K3']['plain_ms']:.3f}, index_put_ "
+        f"{kern32['K3']['library_ms']:.3f}), all bitwise equal [{card}]")
+    del b["fac"]
+    torch.cuda.empty_cache()
+
+    # (c) the mesh engine, an NCCL world of one, on 12a's symbolic plan
+    matrix, maps = read_matrix_file(mat), load_ind_maps(mat)
+    dev = init_process_group(device, 0, 1, str(work / "nccl_store_12"))
+    small = []
+    real_small = mf_torch.partial_factor_small_batch
+    mf_torch.partial_factor_small_batch = (
+        lambda *a_, **k: small.append(1) or real_small(*a_, **k))
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        reset_counts(ck, dev)
+        t0 = time.perf_counter()
+        mfac = MultifrontalFactorization(matrix, maps=maps, sym=sym,
+                                         device=dev,
+                                         mesh=make_mesh(1, ("front",)))
+        t_cold = time.perf_counter() - t0
+        X = mfac.solve(Bm)
+        launches = dict(ck.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        mplans = mfac.engine.plans
+        want_k1 = sum(math.ceil(p.P / 128) for p in mplans)
+        if (launches["pivoted_panel_f64"] != want_k1
+                or launches["ell_assemble_f64"] != len(mplans)
+                or launches["pivoted_panel_f32"]
+                or launches["ell_assemble_f32"] or small):
+            raise AssertionError(f"12c mesh of one: launches {launches}, "
+                                 f"{len(small)} library LU calls, want K1 "
+                                 f"{want_k1} and K3 {len(mplans)}")
+        rel = max_rel(A, X, Bm)
+        if not rel <= 1e-10:
+            raise AssertionError(f"12c mesh of one residual {rel:.3e}")
+        agree = solutions_agree(X, X64, "12c mesh of one against 12a")
+        t0 = time.perf_counter()
+        mfac.refactor()
+        t_steady = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mfac.solve(Bm)
+        t_solve = time.perf_counter() - t0
+        planned = plan_memory(mplans, 1, 8).peak_per_device
+        del mfac
+        torch.cuda.empty_cache()
+        top = treetop_panel_ms(ck, dev, mplans, seed=600)
+    finally:
+        mf_torch.partial_factor_small_batch = real_small
+        dist.destroy_process_group()
+    if not (top["tall"] and top["slab"]):
+        raise AssertionError(f"12c: no tree-top panel over {TALL_R} rows "
+                             f"in column slabs: {top}")
+    c = dict(launches=launches, treetop_panels=top["panels"],
+             tallest_R=top["tallest_R"], tallest_config=top["tallest_config"],
+             tall_panels=top["tall"], residual=rel, solutions_diff=agree,
+             cold_facade_s=t_cold, steady_factor_s=t_steady,
+             solve_4rhs_s=t_solve, peak_mem_gb=peak / 1e9,
+             plan_peak_gb=planned / 1e9,
+             k1_per_factor={k: kern64["K1"][k] + top[k] for k in
+                            ("ms", "plain_ms", "library_ms", "bound_ms")})
+    say(f"phase 12c upwind3 gx3deep, mesh of one (NCCL): K1 "
+        f"{launches['pivoted_panel_f64']} launches per factor (every round; "
+        f"{top['panels']} tree-top panels, {top['tall']} of them over "
+        f"{TALL_R} rows, all bitwise equal to the plain version; tallest R "
+        f"{top['tallest_R']} at (C, nb) = {top['tallest_config']}), K3 "
+        f"{launches['ell_assemble_f64']}, no library LU; residual "
+        f"{rel:.3e}, solutions {agree:.2e} of the largest entry from 12a's; "
+        f"cold {t_cold:.2f} s, steady factor {t_steady:.4f} s, 4-RHS solve "
+        f"{t_solve:.4f} s, peak {peak / 1e9:.2f} GB against plan "
+        f"{planned / 1e9:.2f} GB; K1 per factor "
+        f"{c['k1_per_factor']['ms']:.3f} ms (tree-top {top['ms']:.3f}), "
+        f"bound {c['k1_per_factor']['bound_ms']:.4f}, lu_factor_ex "
+        f"{c['k1_per_factor']['library_ms']:.3f}, plain "
+        f"{c['k1_per_factor']['plain_ms']:.1f} [{card}]")
+    stats = dict(card=card, a=brief(a), b=brief(b), c=c, kern64=kern64,
+                 kern32=kern32)
+    say("phase 12a-c upwind3 gx3deep: " + json.dumps(stats, default=str))
+    return stats
+
+
+def phase_coupled(ck, device, work: Path, card: str) -> dict:
+    """12d: the coupled PO4-DOP options file at gx3 through the port's
+    gen_a CLI, then run_solve -v OCMIP_BGC_PO4,OCMIP_BGC_DOP at f64: each
+    tracer's own rows of the residual, land cells bit for bit, both
+    tracers written."""
+    import torch
+    mat, tracer, t_gen = make_config(work / "coupled", GX3, COUPLED_OPTS,
+                                     COUPLED, upwind3=False)
+    d = reference_solve(ck, device, mat, tracer, ",".join(COUPLED), "f64",
+                        groups=[COUPLED])
+    fac = d["fac"]
+    A = d["A"]
+    tsl = A.shape[0] // 2
+    coo = A.tocoo()
+    cross = int(((coo.row < tsl) != (coo.col < tsl)).sum())
+    if fac.matrix.coupled_tracer_cnt != 2 or not cross:
+        raise AssertionError(f"12d: {cross} cross-tracer entries")
+    before, after = (solutions(mat, f, COUPLED)
+                     for f in (tracer, d["out_file"]))
+    if (before == after).all(axis=0).any():
+        raise AssertionError("12d: a coupled tracer was not written")
+    d.update(gen_a_s=t_gen, cross_entries=cross,
+             **steady(fac, A, d["Bm"]))
+    d["breakdown"] = stage_breakdown(fac, device)
+    kern = refactor_kernel_ms(ck, device, fac.engine.plans,
+                              fac._fac_matrix.nzval)
+    say(f"phase 12d coupled PO4-DOP gx3 f64: gen_A {t_gen:.2f} s, flat_len "
+        f"{d['flat_len']} (2 x {tsl}), nnz {d['nnz']} ({cross} in the "
+        f"cross-tracer blocks), rounds (B, P, N) {d['rounds']}; residuals "
+        f"{d['residuals']} (each tracer's own rows, long double), land "
+        f"cells bit for bit, both tracers written; cold factor "
+        f"{d['cold_factor_s']:.3f} s, steady {d['steady_factor_s']:.4f} s, "
+        f"solve {d['solve_4rhs_s']:.4f} s, refiner {d['refiner']}, peak "
+        f"{d['peak_mem_gb']:.2f} GB against plan {d['plan_peak_gb']:.2f} GB; "
+        f"K1 {d['launches']['pivoted_panel_f64']} and K3 "
+        f"{d['launches']['ell_assemble_f64']} launches; K1 "
+        f"{kern['K1']['ms']:.3f} ms per factor (bound "
+        f"{kern['K1']['bound_ms']:.4f}, plain {kern['K1']['plain_ms']:.1f}, "
+        f"lu_factor_ex {kern['K1']['library_ms']:.3f}), K3 "
+        f"{kern['K3']['ms']:.3f} ms (bound {kern['K3']['bound_ms']:.4f}, "
+        f"plain {kern['K3']['plain_ms']:.3f}, index_put_ "
+        f"{kern['K3']['library_ms']:.3f}), bitwise equal; synchronized "
+        f"refactor {d['breakdown']['synced_refactor_ms']:.1f} ms, exclusive "
+        f"ms {d['breakdown']['stages_ms']} [{card}]")
+    del fac, d["fac"]
+    torch.cuda.empty_cache()
+    return dict(d=brief(d), kern=kern)
+
+
+def phase_nk_loop_f32(ck, device, work: Path, card: str) -> dict:
+    """12e: drivers.nk_loop.run_nk_loop at gx3deep (bench's options,
+    phase 8's problem), f32, 4 RHS, 3 iterations: each refactor's
+    launches at the factor dtype it ran at, which iteration escalated,
+    every residual <= 1e-10; then K2 and K3-f32 at the loop's shapes."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import nk_loop
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf
+    matrix, maps, circ = nk_loop.build_problem(GX3DEEP, str(work / "gx3deep"))
+    B = np.random.default_rng(0).standard_normal((matrix.flat_len, 4))
+    per_refactor = []
+    real_refactor = mf.MultifrontalFactorization.refactor
+
+    def counted(self, *a, **kw):
+        before = dict(ck.LAUNCHES)
+        sfx = ck.SUFFIX[self.engine.prec]
+        real_refactor(self, *a, **kw)
+        per_refactor.append((sfx, {k: ck.LAUNCHES[k] - before[k]
+                                   for k in ck.LAUNCHES}))
+    reset_counts(ck, device)
+    mf.MultifrontalFactorization.refactor = counted
+    try:
+        res = nk_loop.run_nk_loop(matrix, maps, circ, B, NK_ITERATIONS,
+                                  device=device, precision="f32")
+    finally:
+        mf.MultifrontalFactorization.refactor = real_refactor
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    fac = res.factorization
+    plans = fac.engine.plans
+    for it, (sfx, got) in enumerate(per_refactor, 1):
+        try:
+            expect_launches(got, plans, (sfx,))
+        except AssertionError as e:
+            raise AssertionError(f"12e iteration {it} ({sfx}): {e}") from None
+    escalated = [r["it"] for r in res.rows if r["escalated"]]
+    panels = sum(math.ceil(p.P / 128) for p in plans if p.B > 2)
+    n32 = 1 + sum(s == "f32" for s, _ in per_refactor)
+    n64 = sum(s == "f64" for s, _ in per_refactor) + len(escalated)
+    if (len(escalated) > 1
+            or launches["pivoted_panel_f32"] != n32 * panels
+            or launches["pivoted_panel_f64"] != n64 * panels
+            or launches["ell_assemble_f32"] != n32 * len(plans)
+            or launches["ell_assemble_f64"] != n64 * len(plans)):
+        raise AssertionError(f"12e launches {launches}: want {n32} f32 and "
+                             f"{n64} f64 factors of {panels} panels and "
+                             f"{len(plans)} rounds (escalated {escalated})")
+    for r in res.rows:
+        say(f"phase 12e NK iteration {r['it']} (f32 requested): "
+            f"{r['factor_dtype']} factors after its solve"
+            f"{' (escalated in this solve)' if r['escalated'] else ''}; "
+            f"assemble {r['assemble']:.4f} s, refactor {r['refactor']:.3f} "
+            f"s (engine {r['refactor_split']['factor']:.3f} s), solve "
+            f"{r['solve']:.3f} s, residual {r['residual']:.3e}, refiner "
+            f"{r['refiner']} [{card}]")
+        if not r["residual"] <= 1e-10:
+            raise AssertionError(f"12e iteration {r['it']}: residual "
+                                 f"{r['residual']:.3e} > 1e-10")
+    kern32 = refactor_kernel_ms(ck, device, plans, fac._fac_matrix.nzval,
+                                "f32")
+    stats = dict(card=card, escalated_in=escalated,
+                 launches=launches, f32_factors=n32, f64_factors=n64,
+                 cold_factor_s=res.cold_factor_s, peak_mem_gb=peak / 1e9,
+                 iterations=res.rows, kern32=kern32)
+    say(f"phase 12e NK loop gx3deep f32: "
+        f"{'escalated in iteration ' + str(escalated[0]) if escalated else 'no escalation'}"
+        f"; {n32} f32 and {n64} f64 factors ({launches}); cold factor "
+        f"{res.cold_factor_s:.2f} s, peak {peak / 1e9:.2f} GB; K2 "
+        f"{kern32['K1']['ms']:.3f} ms per f32 factor ({kern32['K1']['panels']}"
+        f" panels, bound {kern32['K1']['bound_ms']:.4f}, plain "
+        f"{kern32['K1']['plain_ms']:.1f}, lu_factor_ex "
+        f"{kern32['K1']['library_ms']:.3f}), K3-f32 "
+        f"{kern32['K3']['ms']:.3f} ms (bound {kern32['K3']['bound_ms']:.4f},"
+        f" plain {kern32['K3']['plain_ms']:.3f}, index_put_ "
+        f"{kern32['K3']['library_ms']:.3f}), bitwise equal [{card}]")
+    del fac, res
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase12_kernel_rows(up: dict, coupled: dict, nk32: dict) -> list:
+    """The kernels line's rows of phase 12's paths: the launches of each
+    path's run, the times of its own shapes per factor (12c: 12a's B > 2
+    panels, the same shapes, with the tree-top panels timed in 12c)."""
+    rows = []
+    for path, sfx, launched, kern in (
+            ("upwind3 gx3deep leaf 32 (12a)", "f64", up["a"]["launches"],
+             up["kern64"]),
+            ("upwind3 gx3deep leaf 32 (12b)", "f32", up["b"]["launches"],
+             up["kern32"]),
+            ("upwind3 gx3deep mesh of one (12c)", "f64", up["c"]["launches"],
+             dict(K1=dict(up["c"]["k1_per_factor"],
+                          bound_by=up["kern64"]["K1"]["bound_by"]))),
+            ("coupled PO4-DOP gx3 leaf 32 (12d)", "f64",
+             coupled["d"]["launches"], coupled["kern"]),
+            ("NK loop gx3deep f32, whole loop (12e)", "f32",
+             nk32["launches"], nk32["kern32"])):
+        for key, name, source, replaces in (
+                ("K1", f"pivoted_panel_{sfx}", PANEL_SOURCE,
+                 PANEL_REPLACES[sfx]),
+                ("K3", f"ell_assemble_{sfx}", ASM_SOURCE, ASM_REPLACES)):
+            if key in kern:
+                rows.append(dict(
+                    name=name, route="cuda", source=source,
+                    replaces=replaces, path=path, launches=launched[name],
+                    max_abs_err=0.0, **{k: kern[key][k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")}))
+    return rows
+
+
 def main() -> int:
     if not (REPO / PKG).is_dir():
         raise SystemExit(f"chip_smoke: {PKG}/ not found next to this script "
@@ -1866,6 +2355,15 @@ def main() -> int:
             ck, device, work, card, deep_stats["kernels_per_refactor"]["K1"])
         phase_gloo_worlds(ck, device, work, mat, card)
 
+        # phase 12: the reference's own assembly configurations, (a)-(c)
+        # upwind3 at gx3deep (f64, f32, the mesh of one), (d) the coupled
+        # PO4-DOP pair at gx3, (e) the NK loop at gx3deep at f32
+        t0 = time.perf_counter()
+        up = phase_upwind3(ck, device, work, card)
+        coupled = phase_coupled(ck, device, work, card)
+        nk32 = phase_nk_loop_f32(ck, device, work, card)
+        say(f"phase 12 in all: {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for sfx in DTYPES:
         kernels.append(dict(
@@ -1892,6 +2390,7 @@ def main() -> int:
         launches=mesh_one["launches"]["ell_assemble_f64"], max_abs_err=0.0,
         bound_by="bytes", **{k: k3m[k] for k in ("ms", "plain_ms",
                                                  "library_ms", "bound_ms")}))
+    kernels += phase12_kernel_rows(up, coupled, nk32)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -167,21 +167,28 @@ def run_nk_loop(matrix: SparseMatrix, maps, circ: str, B: np.ndarray,
         t0 = time.perf_counter()
         fac.refactor(m_new)
         t_fac = time.perf_counter() - t0
+        split = {k: fac.timings[k] for k in ("to_scipy", "equilibrate",
+                                             "rebind", "factor")}
+        prec = fac.engine.prec
         t0 = time.perf_counter()
         X = fac.solve(B)
         t_solve = time.perf_counter() - t0
         res = residual(m_new, X, B)
-        split = {k: fac.timings[k] for k in ("to_scipy", "equilibrate",
-                                             "rebind", "factor")}
+        # a float32 solve that gave up refactored in float64: later
+        # iterations refactor in float64
+        escalated = fac.engine.prec != prec
+        dtype = str(fac.engine.prec).removeprefix("torch.")
         rows.append(dict(it=it, assemble=t_asm, refactor=t_fac,
                          solve=t_solve, residual=res,
-                         refactor_split=split,
+                         refactor_split=split, factor_dtype=dtype,
+                         escalated=escalated,
                          refiner=dict(fac._refiner.stats)))
         nzvals.append(nz)
         solutions.append(X)
         print(f"# it {it}: assemble {t_asm:.3f}s refactor {t_fac:.3f}s "
               f"(engine {split['factor']:.3f}s) solve {t_solve:.3f}s "
-              f"residual {res:.2e}", file=sys.stderr)
+              f"residual {res:.2e}, {dtype} factors"
+              + (" (escalated)" if escalated else ""), file=sys.stderr)
     return NKLoopResult(rows=rows, symbolic_s=t_sym, cold_factor_s=t_cold,
                         cold_timings=cold_timings, update_plan_s=t_plan, factorization=fac, plan=plan,
                         asm=asm, stacked0=stacked0, nzvals=nzvals,

@@ -185,11 +185,13 @@ def test_panel_launch_config_follows_active_clusters():
     assert ck.panel_launch_config(256, 128, 128, 4, no_one)[0] > 1
 
 
-@pytest.mark.parametrize("R", [1664, 2048, 4096, 8192])
+@pytest.mark.parametrize("R", [1664, 2048, 4096, 7680, 8192, 13824])
 @pytest.mark.parametrize("itemsize", [8, 4])
 def test_panel_launch_config_tall(R, itemsize):
     """Tall panels walk column slabs on the largest cluster; the slab is
-    the widest multiple of 8 that fits."""
+    the widest multiple of 8 that fits. 7680 is the tallest panel of the
+    upwind3 gx3deep plan (the mesh engine's tree-top round (1, 7680,
+    13824)), 13,824 that plan's widest front as one panel."""
     C, nb = _valid_config(4, R, 128, itemsize)
     rows = -(-R // C)
     if ck.panel_smem_bytes(rows, 128, itemsize) <= ck.SMEM_BLOCK:
@@ -199,8 +201,10 @@ def test_panel_launch_config_tall(R, itemsize):
         assert ck.panel_smem_bytes(rows, nb + 8, itemsize) > ck.SMEM_BLOCK
     if R >= 4096:
         assert nb < 128
-    if (R, itemsize) == (8192, 8):
+    if (R, itemsize) in ((7680, 8), (8192, 8), (13824, 4)):
         assert (C, nb) == (8, 24)
+    if (R, itemsize) == (13824, 8):
+        assert (C, nb) == (8, 8)
 
 
 def test_panel_launch_config_refuses_what_does_not_fit():

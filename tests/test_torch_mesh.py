@@ -9,7 +9,8 @@ than one band raises: the sharded apply never computes on one device.
 
 ``band_world`` is what tests/test_torch_dist_stencil.py runs in each rank
 of a gloo world on the CPU (``spawn_world``), ``solver_world`` what
-tests/test_torch_dist_solver.py runs. This file imports no jax, so the
+tests/test_torch_dist_solver.py runs and ``factors_world`` what
+tests/test_torch_reference_configs.py runs. This file imports no jax, so the
 spawned ranks do not load it.
 """
 
@@ -229,6 +230,40 @@ def solver_world(rank: int, world: int, store: str, cases: dict,
                       rfac.mesh.coords),
                 X=rfac.solve(np.random.default_rng(21).standard_normal(
                     (n, 4))))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def factors_world(rank: int, world: int, store: str, mat: str, B,
+                  out_dir: str) -> None:
+    """One rank of a gloo world of ``world`` ranks factoring ``mat``
+    through the facade with ``n_devices=world`` (the mesh engine) and
+    solving ``B``: writes the plans, the whole factors gathered to every
+    rank, the library LU calls (none under a mesh) and the solution to
+    ``out_dir``/rank<r>.pt."""
+    torch.set_num_threads(1)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        load_ind_maps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf_torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    init_process_group("cpu", rank, world, store)
+    try:
+        small = []
+        real_small = mf_torch.partial_factor_small_batch
+        mf_torch.partial_factor_small_batch = (
+            lambda *a, **k: small.append(1) or real_small(*a, **k))
+        fac = MultifrontalFactorization(read_matrix_file(mat),
+                                        maps=load_ind_maps(mat),
+                                        device="cpu", n_devices=world)
+        eng = fac.engine
+        out = dict(plans=[(p.B, p.P, p.N, p.M) for p in eng.plans],
+                   factors=[tuple(t.clone() for t in f)
+                            for f in eng.global_factors()],
+                   small_lu_calls=len(small), X=fac.solve(B))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

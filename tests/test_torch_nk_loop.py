@@ -59,13 +59,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _jax_loop(mat: str, circ: str, B: np.ndarray):
-    """bench.py:139-190 through the JAX package: (new values, solutions,
-    residuals) per iteration."""
+def _jax_loop(mat: str, circ: str, B: np.ndarray, precision: str = "f64"):
+    """bench.py:139-190 through the JAX package at ``precision``: the
+    update plan, and per iteration (new values, solutions, residual, the
+    factor dtype after the solve)."""
     matrix, maps = ref_read_matrix(mat), ref_load_maps(mat)
     sym = ref_symbolic(maps, matrix, leaf_size=16)
     fac = RefFactorization(matrix, impl="jax", maps=maps, sym=sym,
-                           refine_tol=TOL, precision="f64")
+                           refine_tol=TOL, precision=precision)
     pt = RefPerTracer(sink_type="const", sink_rate=1.21e-4)
     opts = RefOptions(circ_fname=circ, adv_type="centered",
                       hmix_type="isop_file", vmix_type="file",
@@ -86,7 +87,8 @@ def _jax_loop(mat: str, circ: str, B: np.ndarray):
                                 coupled_tracer_cnt=matrix.coupled_tracer_cnt)
         fac.refactor(m_new)
         X = fac.solve(B)
-        out.append((nz, X, nk_loop.residual(m_new, X, B)))
+        out.append((nz, X, nk_loop.residual(m_new, X, B),
+                    np.dtype(fac.engine.prec).name))
     return plan, out
 
 
@@ -114,7 +116,7 @@ def test_update_plan_equals_jax(loops):
 def test_new_values_bitwise_equal_jax(loops):
     port, (_, ref), matrix, _ = loops
     assert len(port.nzvals) == len(ref) == N_ITER
-    for it, (nz, (want, _, _)) in enumerate(zip(port.nzvals, ref), 1):
+    for it, (nz, (want, _, _, _)) in enumerate(zip(port.nzvals, ref), 1):
         np.testing.assert_array_equal(nz, want, err_msg=f"iteration {it}")
         assert not np.array_equal(nz, matrix.nzval)
     # the facade holds the last iteration's values
@@ -124,7 +126,8 @@ def test_new_values_bitwise_equal_jax(loops):
 
 def test_solutions_and_residuals(loops):
     port, (_, ref), _, B = loops
-    for row, X, (_, X_ref, res_ref) in zip(port.rows, port.solutions, ref):
+    for row, X, (_, X_ref, res_ref, _) in zip(port.rows, port.solutions,
+                                                 ref):
         assert X.shape == B.shape and np.all(np.isfinite(X))
         assert row["residual"] <= 1e-10 and res_ref <= 1e-10
         rel = float(np.abs(X - X_ref).max() / np.abs(X_ref).max())
