@@ -23,16 +23,18 @@ its hand-written CUDA kernels on the way:
    rows), the port's own gen_A, then drivers.solve.run_solve on cuda over
    four tracers; every residual <= 1e-10, land cells unchanged, every kernel launched on
    the rounds that use it; then the steady refactor and the 4-RHS solve
-   timed, a synchronized stage breakdown of one steady refactor (which
-   must call no seq_to_perm) and torch.profiler's kernel count and device
-   busy share of another;
+   timed, a synchronized stage breakdown of one steady refactor
+   (drivers.profile.profile_refactor: the stage timer on the engine's
+   round loop; it must call no seq_to_perm, and its stages plus the walk
+   must add up to the wall within 1%) and torch.profiler's kernel count
+   and device busy share of another (drivers.profile.device_busy);
 6. main path at f32: the same through run_solve(..., precision="f32"): K2
    and K3-f32 on every f32 round, whether the refiner reached the contract
    on f32 factors or the facade escalated to f64 (then K1 and K3-f64 run
    on the refactor), the refiner's phases and cycles, times, peak memory;
    every residual <= 1e-10 either way. When it escalated, the f32 factors
-   are then built alone to time their steady refactor and read their own
-   peak memory;
+   are then built alone to time their steady refactor, read their own
+   peak memory and print the per-round profile of their refactor (K2);
 7. gx3 out of core at f64, on the phase-5 problem: (f) three unrefined
    4-RHS solves on gx3 f32 factors, bit for bit alike (the border
    subtraction adds in waves of distinct destinations); (a) the CLI's
@@ -53,9 +55,10 @@ its hand-written CUDA kernels on the way:
    one-time costs, peak memory and each round's peak of a steady refactor
    against memplan.engine_round_peaks; the value update on the card bit
    for bit with the host's (also at tiny size with a W > 1 fold), the
-   stencil operator's matvec against the CSR product, and K1's and K3's
+   stencil operator's matvec against the CSR product, K1's and K3's
    ms per gx3deep refactor beside their bounds (every panel shape and
-   every round's fronts bit for bit against the plain versions);
+   every round's fronts bit for bit against the plain versions), and the
+   per-round profile of a synchronized steady refactor;
 9. the factor-and-solve bench (drivers.bench.main, bench.py's main path)
    at gx3, f64, on the card, with its cache in this run's temporary
    directory, so scipy's SuperLU baseline is measured on this host: every
@@ -96,21 +99,28 @@ its hand-written CUDA kernels on the way:
    the plans say, cold and steady factor with a synchronized stage
    breakdown of one steady refactor, the 4-RHS solve, the refiner's
    phases, peak memory against plan_memory, K1 and K3 bit for bit and
-   timed at its shapes; (b) the same at f32: the float64 substitution
-   (_hi_round) on exactly the rounds with P >= HI_ROUND_MIN_P in every
-   f32 sweep, the refiner's tier (plain IR, fused f32 FGMRES, or the
-   escalation to f64), K2 and K3-f32 bit for bit and timed; (c) the
-   same matrix on the mesh engine in an NCCL world of one: K1 on every
-   round, the tree-top panels (taller than 4096 rows, in column slabs)
-   bit for bit with the plain version, the tallest panel's launch config,
-   solutions within 1e-9 of (a)'s largest entry; (d) the coupled PO4-DOP
-   pair at gx3 (d_J_A_d_B from the tracer file), run_solve -v
-   OCMIP_BGC_PO4,OCMIP_BGC_DOP at f64: each tracer's own rows of the
-   residual <= 1e-10, land cells bit for bit, both tracers written, the
-   steady refactor and its stage breakdown;
+   timed at its shapes, the per-round profile; (b) the same at f32: the
+   float64 substitution (_hi_round) on exactly the rounds with P >=
+   HI_ROUND_MIN_P in every f32 sweep, the refiner's tier (plain IR, fused
+   f32 FGMRES, or the escalation to f64), K2 and K3-f32 bit for bit and
+   timed; (c) the same matrix on the mesh engine in an NCCL world of one:
+   K1 on every round, the tree-top panels (taller than 4096 rows, in
+   column slabs) bit for bit with the plain version, the tallest panel's
+   launch config, solutions within 1e-9 of (a)'s largest entry; (d) the
+   coupled PO4-DOP pair at gx3 (d_J_A_d_B from the tracer file),
+   run_solve -v OCMIP_BGC_PO4,OCMIP_BGC_DOP at f64: each tracer's own
+   rows of the residual <= 1e-10, land cells bit for bit, both tracers
+   written, the steady refactor and its stage breakdown;
    (e) the NK loop at gx3deep at f32, 3 iterations: each refactor's
    launches at its factor dtype, which iteration escalated, every
-   residual <= 1e-10, K2 and K3-f32 at the loop's shapes.
+   residual <= 1e-10, K2 and K3-f32 at the loop's shapes;
+13. scripts/torch_gx1_dist_run.py (the distributed gx1 runner) on phase
+   5's gx3 matrix as an NCCL world of one with --ckpt, run twice: the
+   first computes and saves every round, the second loads every round,
+   computes none and gives the same solutions bit for bit; every residual
+   <= 1e-10; before the first run, what chip_smoke has written so far
+   (/proc/self/io's wchar) and this phase's planned writes stay under
+   WRITE_CAP_GB; the checkpoint directory is deleted.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel results (K1 and K3-f64 twice: the gx3 main path, and the mesh
@@ -128,7 +138,6 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -190,6 +199,9 @@ PANEL_SHAPES = [(4, 256, 128, 128), (3, 128, 128, 0), (2, 512, 64, 0),
 TALL_R = 4096
 
 
+# the card's host ends a run that has written 45 GiB to its disk (deleted
+# files count): the writes this script plans stay under 0.8 of it
+WRITE_CAP_GB = 0.8 * 45 * 2**30 / 1e9
 # published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM
 # bytes per second, and FLOP/s of FP64 and FP32 outside the tensor cores
 HBM_BPS = 3.35e12
@@ -675,102 +687,73 @@ def steady(fac, A, Bm) -> dict:
 
 
 def stage_breakdown(fac, device) -> dict:
-    """One steady refactor with a synchronize around each stage of the
-    round loop: exclusive ms per stage (a stage's time less that of the
-    stages it calls), and the calls of seq_to_perm made in it (none: the
-    panel kernel composes the permutation)."""
-    import torch
+    """drivers.profile.profile_refactor over the facade (a warm refactor,
+    then a steady one under the stage timer, a synchronize around each
+    stage of the engine's round loop) in the keys the phases print:
+    exclusive ms per stage (a stage's time less that of the stages it
+    calls), the walk outside the stages, the synchronized wall and the
+    calls; beside them the split of the rest of partial_factor, the
+    per-round profile, and the calls of seq_to_perm made in it (none on
+    the card: the panel kernel composes the permutation). The stages plus
+    the walk must add up to the wall within 1%."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import profile
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
-        cuda_kernels as ck, mf_torch)
-    incl: dict = {}
-    child: dict = {}
-    calls: dict = {}
-    stack: list = []
-    top = [0.0]
-    patched = []
-
-    def timed_stage(owner, attr, name):
-        real = getattr(owner, attr)
-
-        def run(*args, **kw):
-            sync(device)
-            stack.append(name)
-            t0 = time.perf_counter()
-            try:
-                return real(*args, **kw)
-            finally:
-                sync(device)
-                dt = (time.perf_counter() - t0) * 1e3
-                stack.pop()
-                incl[name] = incl.get(name, 0.0) + dt
-                calls[name] = calls.get(name, 0) + 1
-                if stack:
-                    child[stack[-1]] = child.get(stack[-1], 0.0) + dt
-                else:
-                    top[0] += dt
-        patched.append((owner, attr, real))
-        setattr(owner, attr, run)
-
-    sfx = ck.SUFFIX[fac.engine.prec]
-    for owner, attr, name in (
-            (ck, "ell_assemble", f"K3 ell_assemble_{sfx}"),
-            (ck, "pivoted_panel", f"{KID[sfx]} pivoted_panel_{sfx}"),
-            (ck, "seq_to_perm", "seq_to_perm"),
-            (mf_torch, "extend_add", "extend_add"),
-            (mf_torch, "pack_diag_inv", "pack_diag_inv"),
-            (mf_torch, "partial_factor_small_batch",
-             "tree-top library LU (B <= 2)"),
-            (mf_torch, "partial_factor",
-             "partial_factor rest (row gather, TRSM, GEMM)")):
-        timed_stage(owner, attr, name)
+        cuda_kernels as ck)
+    seq = []
+    real = ck.seq_to_perm
+    ck.seq_to_perm = lambda *a, **kw: seq.append(1) or real(*a, **kw)
     try:
-        t0 = time.perf_counter()
-        fac.refactor()
-        wall = (time.perf_counter() - t0) * 1e3
+        prof = profile.profile_refactor(fac, device)
     finally:
-        for owner, attr, real in reversed(patched):
-            setattr(owner, attr, real)
+        ck.seq_to_perm = real
     # (on the CPU the plain panel composes it through seq_to_perm)
-    if device.type == "cuda" and calls.get("seq_to_perm", 0):
+    if device.type == "cuda" and seq:
         raise AssertionError(f"the steady refactor called seq_to_perm "
-                             f"{calls['seq_to_perm']} times")
-    excl = {k: v - child.get(k, 0.0) for k, v in incl.items()}
-    stages = {k: round(v, 3)
-              for k, v in sorted(excl.items(), key=lambda kv: -kv[1])}
-    stages["engine walk outside the stages"] = round(wall - top[0], 3)
-    return dict(synced_refactor_ms=round(wall, 3), stages_ms=stages,
-                stage_calls=calls)
+                             f"{len(seq)} times")
+    tot, calls, wall = prof["totals"], prof["calls"], prof["wall_ms"]
+    if abs(sum(tot.values()) + prof["walk_ms"] - wall) > 0.01 * wall:
+        raise AssertionError(f"stages {sum(tot.values()):.3f} ms and walk "
+                             f"{prof['walk_ms']:.3f} ms against the wall "
+                             f"{wall:.3f} ms")
+    sfx = ck.SUFFIX[fac.engine.prec]
+    keys = {f"K3 ell_assemble_{sfx}": ("assemble",),
+            f"{KID[sfx]} pivoted_panel_{sfx}": ("panel",),
+            "extend_add": ("extend_add",), "pack_diag_inv": ("pack",),
+            "tree-top library LU (B <= 2)": ("treetop_lu",),
+            "partial_factor rest (row gather, TRSM, GEMM)": (
+                "partial_factor", "row_gather", "trsm", "gemm"),
+            "checkpoint save": ("ckpt_save",),
+            "checkpoint load": ("ckpt_load",)}
+    stages = {name: round(sum(tot[k] for k in ks), 3)
+              for name, ks in keys.items() if calls[ks[0]]}
+    stages = dict(sorted(stages.items(), key=lambda kv: -kv[1]))
+    stages["engine walk outside the stages"] = round(prof["walk_ms"], 3)
+    stage_calls = {name: calls[ks[0]] for name, ks in keys.items()
+                   if calls[ks[0]]}
+    if seq:
+        stage_calls["seq_to_perm"] = len(seq)
+    return dict(
+        synced_refactor_ms=round(wall, 3), stages_ms=stages,
+        stage_calls=stage_calls,
+        partial_factor_rest_split_ms={
+            "row gather": round(tot["row_gather"], 3),
+            "TRSM": round(tot["trsm"], 3),
+            "trailing GEMM": round(tot["gemm"], 3),
+            "other (panel input copy, permutation, copies out)":
+                round(tot["partial_factor"], 3)},
+        rows_share_of_wall=prof["rows_ms"] / wall, profile=prof)
 
 
-def device_busy(fac, device) -> dict:
-    """torch.profiler over one steady refactor: CUDA kernels launched and
-    the union of their intervals as a share of the wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    sync(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fac.refactor()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    names: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            names[e.name] = names.get(e.name, 0) + 1
-    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
-    return dict(profiled_refactor_ms=round(wall_us / 1e3, 3),
-                device_kernels=len(spans),
-                device_busy_share=(round(busy / wall_us, 4) if spans
-                                   else "not measured"),
-                top_kernels_by_count=top)
+def print_rounds(phase: str, what: str, breakdown: dict, card: str) -> None:
+    """The per-round table of a stage breakdown's profile, and
+    profile_factor.py's ranked costs."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import profile
+    prof = breakdown["profile"]
+    say(f"phase {phase} {what}, per-round profile of one synchronized "
+        f"steady refactor (exclusive ms; rows {prof['rows_ms']:.1f} of the "
+        f"wall {prof['wall_ms']:.1f} ms) [{card}]:\n"
+        + profile.round_table(prof) + "\n"
+        + profile.cost_table(profile.ranked_costs(prof["rows"])))
 
 
 def reference_solve(ck, device, mat: str, tracer: str, vars_arg: str,
@@ -822,12 +805,13 @@ def brief(stats: dict) -> dict:
 
 
 def phase_main(ck, device, mat: str, tracer: str, precision: str,
-               phase: int) -> dict:
+               phase: int, card: str) -> dict:
     """drivers.solve.run_solve over the four tracers at ``precision``,
     from a copy of the original tracer file (``reference_solve``), then
     the steady refactor and solve; returns the launch counts of the run
     and the phase's numbers."""
     import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import profile
     st = reference_solve(ck, device, mat, tracer, ",".join(TRACERS),
                          precision)
     fac = st["fac"]
@@ -837,13 +821,15 @@ def phase_main(ck, device, mat: str, tracer: str, precision: str,
     if precision == "f64":
         stats["breakdown"] = stage_breakdown(fac, device)
         try:
-            stats["profile"] = device_busy(fac, device)
+            stats["profile"] = profile.device_busy(fac, device)
         except Exception as e:  # noqa: BLE001 - a measurement, not a check
             stats["profile"] = f"not measured ({type(e).__name__}: {e})"
     stats["peak_mem_after_refactor_gb"] = torch.cuda.max_memory_allocated(
         device) / 1e9
     if precision == "f32" and st["escalated"]:
         stats.update(f32_alone(fac, device))
+        print_rounds(str(phase), "gx3 f32 factors alone (K2)",
+                     stats["f32_alone_breakdown"], card)
     say(f"phase {phase} main path gx3 {precision}: " + json.dumps(stats))
     return st["launches"], stats
 
@@ -851,7 +837,9 @@ def phase_main(ck, device, mat: str, tracer: str, precision: str,
 def f32_alone(fac, device) -> dict:
     """The gx3 f32 factors never reach a refactor on the main path (it
     escalates): drop the facade's f64 engine, build the f32 factors
-    alone, time their steady refactor and read their own peak."""
+    alone, time their steady refactor and read their own peak; then the
+    stage breakdown of their refactor (the K2 path), through the facade
+    with the f32 engine in place."""
     import torch
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf_torch import (
         TorchMultifrontal)
@@ -868,10 +856,12 @@ def f32_alone(fac, device) -> dict:
     if not all(bool(torch.isfinite(t).all()) for f in eng.factors
                for t in f[:3]):
         raise AssertionError("f32 factors alone: non-finite entries")
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    fac.engine = eng
     return dict(f32_alone_cold_factor_s=cold,
                 f32_alone_steady_factor_s=t_steady,
-                f32_alone_peak_mem_gb=torch.cuda.max_memory_allocated(
-                    device) / 1e9)
+                f32_alone_peak_mem_gb=peak,
+                f32_alone_breakdown=stage_breakdown(fac, device))
 
 
 # --------------------------------------------------------------------------
@@ -935,7 +925,7 @@ def phase_oocore(ck, device, work: Path, mat: str, tracer: str, sym,
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.checkpoint import (
         FactorRoundCheckpointer)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
-        engine_round_peaks)
+        checkpoint_disk_plan, engine_round_peaks)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import equilibrate
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf_torch import (
         TorchMultifrontal, pack_block_size)
@@ -1001,6 +991,7 @@ def phase_oocore(ck, device, work: Path, mat: str, tracer: str, sym,
             max_residual=max(res.values()),
             peak_mem_gb=torch.cuda.max_memory_allocated(device) / gb)
     stats["factors_file_gb"] = f.stat().st_size / gb
+    factors_file = f.stat().st_size
     rel = float(np.abs(X[1] - X[0]).max() / np.abs(X[0]).max())
     if not rel <= 1e-12:
         raise AssertionError(f"--factors: the loaded run's solutions differ "
@@ -1070,6 +1061,10 @@ def phase_oocore(ck, device, work: Path, mat: str, tracer: str, sym,
     stats["round_peak_gb"] = [round_peaks[r] / gb for r in range(n)]
     stats["round_peak_planned_gb"] = [p / gb for p in plan_peaks]
     stats["round_files_gb"] = sum(p.stat().st_size for p in files) / gb
+    # what this phase writes to the disk: the --factors file and the
+    # checkpointed pass (round files and Schur files, deleted ones too)
+    stats["disk_written_planned_gb"] = (
+        factors_file + checkpoint_disk_plan(sym, plans, 8)[1][-1]) / gb
     say(f"phase 7c factor-only: stop after round {k} then resume "
         f"{passes['resume']['rounds']} rounds (K3 once each); peaks "
         f"{passes['stop_after']['peak_mem_gb']:.2f} / "
@@ -1387,6 +1382,9 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         raise AssertionError(f"refactor round peaks over the memory plan's: "
                              f"{[round(x, 3) for x in over]}")
     kern = refactor_kernel_ms(ck, device, plans, fac._fac_matrix.nzval)
+    breakdown = stage_breakdown(fac, device)
+    print_rounds("8", "gx3deep f64 leaf 16 (the NK loop's facade)",
+                 breakdown, card)
     rounds = [(p.B, p.P, p.N) for p in plans]
     stats = dict(
         card=card, flat_len=matrix.flat_len, nnz=matrix.nnz,
@@ -1398,7 +1396,7 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         launches=launches, peak_mem_gb=peak / gb,
         round_peak_over_plan_max=max(over),
         round_peak_gb_max=max(peaks) / gb, kernels_per_refactor=kern,
-        summary=nk_loop.summary(res, 4, "gx3deep"))
+        breakdown=breakdown, summary=nk_loop.summary(res, 4, "gx3deep"))
     say(f"phase 8 gx3deep rounds (B, P, N): {rounds}")
     say(f"phase 8 one-time: gen_A {t_gen:.2f} s, symbolic "
         f"{res.symbolic_s:.2f} s, update plan {res.update_plan_s:.2f} s, "
@@ -1720,9 +1718,11 @@ def phase_mesh_of_one(ck, device, work: Path, card: str,
         f"{k3['plain_ms']:.3f} ms, index_put_ {k3['library_ms']:.3f} ms, "
         f"bound {k3['bound_ms']:.4f} ms) [{card}]")
     say(f"phase 11a synchronized refactor, exclusive ms: mesh of one "
-        f"{stages['synced_refactor_ms']:.1f} {stages['stages_ms']}; "
-        f"single device {single_stages['synced_refactor_ms']:.1f} "
-        f"{single_stages['stages_ms']} [{card}]")
+        f"{stages['synced_refactor_ms']:.1f} {stages['stages_ms']} (rest of "
+        f"partial_factor {stages['partial_factor_rest_split_ms']}); single "
+        f"device {single_stages['synced_refactor_ms']:.1f} "
+        f"{single_stages['stages_ms']} (rest of partial_factor "
+        f"{single_stages['partial_factor_rest_split_ms']}) [{card}]")
     return stats
 
 
@@ -1967,7 +1967,10 @@ def phase_upwind3(ck, device, work: Path, card: str) -> dict:
         f"{kern64['K3']['plain_ms']:.3f}, index_put_ "
         f"{kern64['K3']['library_ms']:.3f}), all bitwise equal; "
         f"synchronized refactor {a['breakdown']['synced_refactor_ms']:.1f} "
-        f"ms, exclusive ms {a['breakdown']['stages_ms']} [{card}]")
+        f"ms, exclusive ms {a['breakdown']['stages_ms']}, rest of "
+        f"partial_factor {a['breakdown']['partial_factor_rest_split_ms']} "
+        f"[{card}]")
+    print_rounds("12a", "upwind3 gx3deep f64 leaf 32", a["breakdown"], card)
     del fac, a["fac"]
     torch.cuda.empty_cache()
 
@@ -2262,6 +2265,122 @@ def phase12_kernel_rows(up: dict, coupled: dict, nk32: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 13: the distributed runner (scripts/torch_gx1_dist_run.py), resumed
+# --------------------------------------------------------------------------
+
+def written_gb() -> float | None:
+    """What this process has written so far, in GB: /proc/self/io's wchar
+    (every write call, to files and pipes, of files deleted since
+    included), an upper bound of its own disk writes. The writes of a
+    child it has reaped (a spawned rank, a subprocess) count only where
+    the kernel adds them to the parent's, which not every kernel does.
+    None where the system does not count writes."""
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                if line.startswith("wchar:"):
+                    return int(line.split()[1]) / 1e9
+    except OSError:
+        pass
+    return None
+
+
+def phase_dist_runner(work: Path, mat: str, card: str,
+                      planned_gb: float) -> dict:
+    """scripts/torch_gx1_dist_run.py on phase 5's gx3 matrix as an NCCL
+    world of one (``-n 1``) with ``--ckpt``, twice: the first run computes
+    and saves every round, the second loads every round and computes
+    none, with solutions bit for bit the first's; every residual <= 1e-10
+    both times. The runner's ``main`` runs in this process, which has
+    imported torch already (its rank is a process of its own, spawned by
+    run_world as always), its output sent to a log in the phase's
+    directory. Before the first run, what this process has written so far
+    (written_gb; where it is not counted, ``planned_gb``, phase 7's
+    planned writes) and this phase's planned writes (its checkpointed
+    pass, from the runner's own cached symbolic analysis) must stay under
+    WRITE_CAP_GB. The checkpoint directory is deleted at the end."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.checkpoint import (
+        load_symbolic)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (
+        checkpoint_disk_plan)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.plan import (
+        build_plan)
+    # importable by name, so that the spawned rank unpickles rank_main
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_gx1_dist_run as runner
+    d = work / "dist_runner"
+    ckpt = d / "rounds"
+    sym = load_symbolic(runner.symbolic_cached(mat, str(d))[0])
+    planned = checkpoint_disk_plan(
+        sym, build_plan(sym, read_matrix_file(mat), batch_multiple=1),
+        8)[1][-1] / 1e9
+    del sym
+    before = written_gb()
+    total = (planned_gb if before is None else before) + planned
+    if total > WRITE_CAP_GB:
+        raise AssertionError(f"chip_smoke would write {total:.1f} GB to "
+                             f"the disk, over {WRITE_CAP_GB} GB")
+    runs = []
+    for name in ("first", "resume"):
+        out, log = d / f"{name}.npz", d / f"{name}.log"
+        t0 = time.perf_counter()
+        # the runner's lines and its rank's go to the log (standard
+        # output's descriptor, which the spawned rank inherits)
+        sys.stdout.flush()
+        saved = os.dup(1)
+        with open(log, "w") as f:
+            os.dup2(f.fileno(), 1)
+            try:
+                rc = runner.main(["--matrix", mat, "-n", "1", "--device",
+                                  "cuda", "--ckpt", str(ckpt), "--cache",
+                                  str(d), "--out", str(out)])
+            finally:
+                sys.stdout.flush()
+                os.dup2(saved, 1)
+                os.close(saved)
+        t = time.perf_counter() - t0
+        text = log.read_text()
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        if rc != 0 or " distributed: ok=True " not in last:
+            raise AssertionError(f"13 {name}: rc {rc}\n{text[-3000:]}")
+        with np.load(out) as z:
+            runs.append(dict(X=z["X"], st=json.loads(str(z["stats"])),
+                             s=t, last=last))
+        if name == "first":
+            ckpt_gb = sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9
+        say(f"phase 13 {name} run: {last} ({t:.1f} s in all; "
+            f"{runs[-1]['st']['rounds_computed']} rounds computed, "
+            f"{runs[-1]['st']['rounds_loaded']} loaded) [{card}]")
+    first, again = runs
+    n = first["st"]["rounds"]
+    if (first["st"]["rounds_computed"] != n
+            or again["st"]["rounds_loaded"] != n
+            or again["st"]["rounds_computed"]):
+        raise AssertionError(f"13: rounds {first['st']} / {again['st']}")
+    if not np.array_equal(first["X"], again["X"]):
+        raise AssertionError("13: the resumed run's solutions differ")
+    shutil.rmtree(ckpt)
+    after = written_gb()
+    stats = dict(card=card, rounds=n, round_files_gb=ckpt_gb,
+                 written_planned_gb=planned,
+                 chip_smoke_written_before_gb=before,
+                 chip_smoke_written_planned_gb=total,
+                 chip_smoke_written_after_gb=after,
+                 first=first["st"], resume=again["st"],
+                 first_s=first["s"], resume_s=again["s"])
+    say(f"phase 13 scripts/torch_gx1_dist_run.py at gx3, NCCL world of "
+        f"one, --ckpt: {n} rounds computed then all {n} loaded, solutions "
+        f"bit for bit; round files {ckpt_gb:.2f} GB; before it chip_smoke "
+        f"had written {before} GB, with this phase's planned "
+        f"{planned:.2f} GB {total:.2f} GB (cap {WRITE_CAP_GB} GB), after "
+        f"it {after} GB [{card}]")
+    say("phase 13 distributed runner: " + json.dumps(stats))
+    return stats
+
+
 def main() -> int:
     if not (REPO / PKG).is_dir():
         raise SystemExit(f"chip_smoke: {PKG}/ not found next to this script "
@@ -2277,7 +2396,7 @@ def main() -> int:
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.symbolic import (
         symbolic_from_matrix)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.device import (
-        resolve_device)
+        card_name, resolve_device)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
         cuda_kernels as ck)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.plan import (
@@ -2285,13 +2404,7 @@ def main() -> int:
 
     # phase 1: device
     device = resolve_device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        raise RuntimeError(f"nvidia-smi failed (rc {smi.returncode}): "
-                           f"{smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name(device)
     say(f"phase 1 device: torch {torch.__version__} cuda "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
@@ -2332,12 +2445,12 @@ def main() -> int:
         # each kernel reports the launches of the path of its dtype
         launches, main_stats = {}, {}
         for sfx, phase in (("f64", 5), ("f32", 6)):
-            launches[sfx], main_stats[sfx] = phase_main(ck, device, mat,
-                                                        tracer, sfx, phase)
+            launches[sfx], main_stats[sfx] = phase_main(
+                ck, device, mat, tracer, sfx, phase, card)
 
         # phase 7: out of core at f64 on the phase-5 problem
-        phase_oocore(ck, device, work, mat, tracer, sym, plans,
-                     main_stats["f64"]["peak_mem_gb"])
+        oocore = phase_oocore(ck, device, work, mat, tracer, sym, plans,
+                              main_stats["f64"]["peak_mem_gb"])
 
         # phase 8: the NK outer loop at gx3deep, f64, 4 RHS
         deep_stats, deep_asm = phase_nk_loop(ck, device, work, card)
@@ -2363,6 +2476,13 @@ def main() -> int:
         coupled = phase_coupled(ck, device, work, card)
         nk32 = phase_nk_loop_f32(ck, device, work, card)
         say(f"phase 12 in all: {time.perf_counter() - t0:.1f} s")
+
+        # phase 13: the distributed runner at gx3, then its resume, in a
+        # process of its own: release what this one caches on the card
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_dist_runner(work, mat, card, oocore["disk_written_planned_gb"])
+        say(f"phase 13 in all: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for sfx in DTYPES:

@@ -5,9 +5,13 @@ back from a missing card to the CPU. The factor precision is float64 (the
 production precision, the reference's own) or float32 (the fast path that
 the refiner tries first under "auto", escalating to float64 when it
 fails); ``resolve_precision`` maps the caller's spec to a torch dtype.
+``card_name`` reads the card's name and power limit, which every time the
+port reports stands beside.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -53,3 +57,20 @@ def resolve_precision(spec: str | None,
         raise ValueError(f"unknown precision {spec!r} (expected f32, f64 or "
                          f"auto)")
     return PRECISIONS[spec]
+
+
+def card_name(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them for
+    ``device``'s card ("cpu" on the CPU)."""
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else 0
+    smi = subprocess.run(["nvidia-smi", f"--id={index}",
+                          "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed (rc {smi.returncode}): "
+                           f"{smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]

@@ -63,9 +63,10 @@ def bench_options(circ: str) -> AssemblyOptions:
                            per_tracer=[pt])
 
 
-def build_problem(dims: dict, work_dir: str):
-    """The synthetic circulation of ``dims`` (seed 7) and its gen_A matrix
-    in ``work_dir``, made once and reused: (matrix, maps, circ path)."""
+def problem_files(dims: dict, work_dir: str) -> tuple[str, str]:
+    """The synthetic circulation file of ``dims`` (seed 7) and its gen_A
+    matrix file in ``work_dir``, made once and reused: (matrix path, circ
+    path)."""
     os.makedirs(work_dir, exist_ok=True)
     tag = "x".join(str(dims[k]) for k in ("imt", "jmt", "km"))
     circ = os.path.join(work_dir, f"circ_{tag}.nc")
@@ -74,19 +75,31 @@ def build_problem(dims: dict, work_dir: str):
         if not os.path.exists(circ):
             make_circ_file(circ, seed=SEED, **dims)
         run_gen_a(mat, opts=bench_options(circ))
+    return mat, circ
+
+
+def build_problem(dims: dict, work_dir: str):
+    """``problem_files``, read: (matrix, maps, circ path)."""
+    mat, circ = problem_files(dims, work_dir)
     return read_matrix_file(mat), load_ind_maps(mat), circ
 
 
-def residual(matrix: SparseMatrix, X: np.ndarray, B: np.ndarray) -> float:
-    """The largest relative residual ||A x - b|| / ||b|| over the columns,
-    with A x - b accumulated in extended precision (numpy's long double).
-    bench.py's _residual computes it in float64, whose own rounding (up to
-    eps * || |A| |x| || / ||b||, 4.8e-10 for one right-hand side at
-    gx3deep) can exceed the 1e-10 contract it checks."""
+def residuals(matrix: SparseMatrix, X: np.ndarray,
+              B: np.ndarray) -> np.ndarray:
+    """The relative residual ||A x - b|| / ||b|| of each column (X, B are
+    (n, nrhs)), with A x - b accumulated in extended precision (numpy's
+    long double). bench.py's _residual computes it in float64, whose own
+    rounding (up to eps * || |A| |x| || / ||b||, 4.8e-10 for one
+    right-hand side at gx3deep) can exceed the 1e-10 contract it checks."""
     ld = np.longdouble
     r = (matrix.to_scipy().astype(ld) @ X.astype(ld) - B.astype(ld))
-    return float(np.max(np.linalg.norm(r.astype(np.float64), axis=0)
-                        / np.linalg.norm(B, axis=0)))
+    return (np.linalg.norm(r.astype(np.float64), axis=0)
+            / np.linalg.norm(B, axis=0))
+
+
+def residual(matrix: SparseMatrix, X: np.ndarray, B: np.ndarray) -> float:
+    """The largest of ``residuals`` over the columns."""
+    return float(np.max(residuals(matrix, X, B)))
 
 
 @dataclass

@@ -175,6 +175,15 @@ def run_memplan(matrix_fname: str, n_devices: int, dbg_lvl: int = 0,
     return 0
 
 
+def n_ranks(npgrid: str | None) -> int:
+    """The rank count of ``-n nprow[,npcol]`` (npcol defaults to nprow, as
+    in the reference's solve_ABdist); 1 without it."""
+    if not npgrid:
+        return 1
+    parts = [int(x) for x in npgrid.split(",")]
+    return parts[0] * (parts[1] if len(parts) > 1 else parts[0])
+
+
 def _solve_rank(device: torch.device, kwargs: dict) -> None:
     """One rank of the distributed mode (parallel.mesh.run_world)."""
     run_solve(device=device, **kwargs)
@@ -221,10 +230,7 @@ def main(argv=None) -> int:
     p.add_argument("matrix_fname")
     p.add_argument("inout_fname", nargs="?", default=None)
     args = p.parse_args(argv)
-    n_devices = 1
-    if args.npgrid:
-        parts = [int(x) for x in args.npgrid.split(",")]
-        n_devices = parts[0] * (parts[1] if len(parts) > 1 else parts[0])
+    n_devices = n_ranks(args.npgrid)
     try:
         if args.memplan:
             return run_memplan(args.matrix_fname, n_devices,

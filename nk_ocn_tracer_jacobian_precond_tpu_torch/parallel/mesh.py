@@ -178,16 +178,12 @@ def _rank_main(rank: int, world: int, store: str, device: str,
         dist.destroy_process_group()
 
 
-def run_world(target, n_ranks: int, device: str | torch.device, *args,
-              backend: str | None = None) -> None:
-    """``target(this rank's torch.device, *args)`` on ``n_ranks`` ranks
-    started here (torch.multiprocessing spawn; ``target`` and ``args`` must
-    pickle), each in a default process group of ``n_ranks`` ranks that
-    meet through a file store in a temporary directory: gloo on cpu; on
-    cuda NCCL with one card per rank (ValueError "requested N devices,
-    have M" when there are fewer cards), or, with ``backend="gloo"``,
-    ranks that share the cards there are. A rank that fails stops the
-    others, and the failure is raised here."""
+def check_world(n_ranks: int, device: str | torch.device,
+                backend: str | None = None) -> torch.device:
+    """The device type ``run_world`` starts ``n_ranks`` ranks on, checked
+    before any rank starts: cuda needs a card per rank unless
+    ``backend="gloo"`` lets ranks share them (ValueError "requested N
+    devices, have M" otherwise); only cuda and cpu are supported."""
     dev = torch.device(device)
     if dev.type == "cuda" and backend != "gloo":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -196,6 +192,20 @@ def run_world(target, n_ranks: int, device: str | torch.device, *args,
     elif dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (expected cuda or "
                          f"cpu)")
+    return dev
+
+
+def run_world(target, n_ranks: int, device: str | torch.device, *args,
+              backend: str | None = None) -> None:
+    """``target(this rank's torch.device, *args)`` on ``n_ranks`` ranks
+    started here (torch.multiprocessing spawn; ``target`` and ``args`` must
+    pickle), each in a default process group of ``n_ranks`` ranks that
+    meet through a file store in a temporary directory: gloo on cpu; on
+    cuda NCCL with one card per rank (ValueError "requested N devices,
+    have M" when there are fewer cards, ``check_world``), or, with
+    ``backend="gloo"``, ranks that share the cards there are. A rank that
+    fails stops the others, and the failure is raised here."""
+    dev = check_world(n_ranks, device, backend)
     with tempfile.TemporaryDirectory(prefix="nk_ranks_") as tmp:
         torch.multiprocessing.start_processes(
             _rank_main, args=(n_ranks, os.path.join(tmp, "store"), dev.type,

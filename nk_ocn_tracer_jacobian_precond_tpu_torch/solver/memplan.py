@@ -292,3 +292,31 @@ def engine_round_peaks(plans, bytes_per_elem: int, nnz: int, pack_bs: int,
         peak = max(peak, tail)
         peaks.append(int(peak * (1 + SLACK_FRAC)) + SLACK_BYTES)
     return peaks
+
+
+def checkpoint_disk_plan(sym, plans, itemsize: int):
+    """(live, written) per round of a checkpointed factor pass (one whose
+    engine has a ``checkpoint_dir``): the bytes it holds on disk while it
+    saves the round (every round file so far, v3 trimmed:
+    each front's p*p + 2*p*m entries, and the padded Schur file of every
+    round whose last consumer has not yet been saved; see
+    mf_torch.TorchMultifrontal._factor_rounds) and the bytes it has
+    written up to then, deleted Schur files included."""
+    last = [-1] * len(plans)
+    for rnd, plan in enumerate(plans):
+        for g in plan.child_groups:
+            last[g.src_round] = max(last[g.src_round], rnd)
+    files = written = 0
+    live, wrote = [], []
+    for rnd, plan in enumerate(plans):
+        size = itemsize * sum(f.p * f.p + 2 * f.p * (f.n - f.p)
+                              for f in (sym.fronts[n]
+                                        for n in plan.node_ids))
+        files += size
+        written += size + (itemsize * plan.B * plan.M * plan.M
+                           if last[rnd] > rnd else 0)
+        schur = sum(itemsize * p.B * p.M * p.M
+                    for s, p in enumerate(plans[:rnd + 1]) if last[s] >= rnd)
+        live.append(files + schur)
+        wrote.append(written)
+    return live, wrote

@@ -66,6 +66,7 @@ import torch
 from ..io.matrixfile import SparseMatrix
 from ..parallel import collectives as coll
 from ..utils import dbg, timed
+from ..utils.profiling import STAGES
 from . import cuda_kernels as ck
 from .checkpoint import FactorRoundCheckpointer
 from .memplan import plan_memory
@@ -142,15 +143,17 @@ def pack_diag_inv(LU, bs: int = PANEL):
     replaced by stril(L_ii^-1, -1) + triu(U_ii^-1); the off-diagonal blocks
     keep the raw L and U values. The layout the block substitutions read."""
     B, Pdim, _ = LU.shape
-    out = LU.clone()
-    for o in range(0, Pdim, bs):
-        T = min(bs, Pdim - o)
-        Ti = LU[:, o:o + T, o:o + T]
-        eye = torch.eye(T, dtype=LU.dtype, device=LU.device).expand(B, T, T)
-        Li = torch.linalg.solve_triangular(Ti, eye, upper=False,
-                                           unitriangular=True)
-        Ui = torch.linalg.solve_triangular(Ti, eye, upper=True)
-        out[:, o:o + T, o:o + T] = torch.tril(Li, -1) + torch.triu(Ui)
+    with STAGES.stage("pack"):
+        out = LU.clone()
+        for o in range(0, Pdim, bs):
+            T = min(bs, Pdim - o)
+            Ti = LU[:, o:o + T, o:o + T]
+            eye = torch.eye(T, dtype=LU.dtype,
+                            device=LU.device).expand(B, T, T)
+            Li = torch.linalg.solve_triangular(Ti, eye, upper=False,
+                                               unitriangular=True)
+            Ui = torch.linalg.solve_triangular(Ti, eye, upper=True)
+            out[:, o:o + T, o:o + T] = torch.tril(Li, -1) + torch.triu(Ui)
     return out
 
 
@@ -257,37 +260,46 @@ def partial_factor(F, P: int, p_arr, tau: float = 0.0,
     order (border rows are never permuted). Rounds of at most two fronts
     take the library LU unless ``allow_native_lu`` is False (mesh engines,
     as mf_jax._partial_factor_body under a mesh): then every round runs the
-    panel kernel."""
+    panel kernel. The stages of the profile (utils.profiling.STAGES) are
+    the library LU, and per panel the kernel, the row gather, the two
+    TRSMs and the trailing GEMM; then the pack."""
     B, N = F.shape[0], F.shape[-1]
     if B <= 2 and allow_native_lu:
-        return partial_factor_small_batch(F, P, tau, pack_bs)
+        with STAGES.stage("treetop_lu"):
+            return partial_factor_small_batch(F, P, tau, pack_bs)
     perm_total = torch.arange(P, device=F.device).repeat(B, 1)
     for off in range(0, P, PANEL):
         T = min(PANEL, P - off)
         R = P - off
+        panel = F[:, off:P, off:off + T].contiguous()
         # the kernel composes the pivot swaps into pperm (B, R) itself
-        Pan, _, pperm = ck.pivoted_panel(
-            F[:, off:P, off:off + T].contiguous(), off, p_arr, tau)
+        with STAGES.stage("panel"):
+            Pan, _, pperm = ck.pivoted_panel(panel, off, p_arr, tau)
+        del panel
         # permute the panel rows' other columns, then put the factored
         # panel in place
-        Rows = torch.gather(F[:, off:P, :], 1,
-                            pperm[:, :, None].expand(B, R, N))
-        Rows[:, :, off:off + T] = Pan
-        F[:, off:P, :] = Rows
-        perm_total[:, off:] = torch.gather(perm_total[:, off:], 1, pperm)
+        with STAGES.stage("row_gather"):
+            Rows = torch.gather(F[:, off:P, :], 1,
+                                pperm[:, :, None].expand(B, R, N))
+            Rows[:, :, off:off + T] = Pan
+            F[:, off:P, :] = Rows
+            perm_total[:, off:] = torch.gather(perm_total[:, off:], 1,
+                                               pperm)
         rest = N - off - T
         if rest > 0:
             D = Pan[:, :T, :T]
-            # U part of the panel rows
-            A12 = torch.linalg.solve_triangular(
-                D, F[:, off:off + T, off + T:], upper=False,
-                unitriangular=True)
-            F[:, off:off + T, off + T:] = A12
-            # L part of the (never permuted) border rows
-            if N > P:
-                F[:, P:, off:off + T] = torch.linalg.solve_triangular(
-                    D, F[:, P:, off:off + T], upper=True, left=False)
-            F[:, off + T:, off + T:] -= F[:, off + T:, off:off + T] @ A12
+            with STAGES.stage("trsm"):
+                # U part of the panel rows
+                A12 = torch.linalg.solve_triangular(
+                    D, F[:, off:off + T, off + T:], upper=False,
+                    unitriangular=True)
+                F[:, off:off + T, off + T:] = A12
+                # L part of the (never permuted) border rows
+                if N > P:
+                    F[:, P:, off:off + T] = torch.linalg.solve_triangular(
+                        D, F[:, P:, off:off + T], upper=True, left=False)
+            with STAGES.stage("gemm"):
+                F[:, off + T:, off + T:] -= F[:, off + T:, off:off + T] @ A12
     K = pack_diag_inv(F[:, :P, :P], pack_bs)
     return (K, F[:, :P, P:].clone(), F[:, P:, :P].clone(),
             F[:, P:, P:].clone(), perm_total)
@@ -623,6 +635,7 @@ class TorchMultifrontal:
                     self._round_consts(rnd)
         self.timings["plan"] = time.perf_counter() - t0
         self.factors = None
+        self.loaded_rounds: list[int] = []
         # the replicated diagonal-block stacks of the masked rounds
         self.kd: list = [None] * len(self.plans)
         if factorize:
@@ -902,23 +915,26 @@ class TorchMultifrontal:
         """Round ``rnd``'s factors (and Schur stack, if given) to the
         checkpoint directory: gathered whole under a mesh, written by the
         first rank alone, on disk for every rank when this returns."""
-        K, U12, L21, perm = self._gather_round(rnd, K, U12, L21, perm)
-        if S is not None:
-            S = self._gather_schur(rnd, S)
-        if self._writer:
-            ckpt.save_round(rnd, plan, K, U12, L21, perm, S,
-                            pm=self._plan_pm(plan))
-        self._mesh_barrier()
+        with STAGES.stage("ckpt_save"):
+            K, U12, L21, perm = self._gather_round(rnd, K, U12, L21, perm)
+            if S is not None:
+                S = self._gather_schur(rnd, S)
+            if self._writer:
+                ckpt.save_round(rnd, plan, K, U12, L21, perm, S,
+                                pm=self._plan_pm(plan))
+            self._mesh_barrier()
 
     def _save_schur(self, ckpt, rnd: int, S) -> None:
-        S = self._gather_schur(rnd, S)
-        if self._writer:
-            ckpt.save_schur(rnd, S)
-        self._mesh_barrier()
+        with STAGES.stage("ckpt_save"):
+            S = self._gather_schur(rnd, S)
+            if self._writer:
+                ckpt.save_schur(rnd, S)
+            self._mesh_barrier()
 
     def _drop_schur(self, ckpt, rnd: int) -> None:
         if self._writer:
-            ckpt.drop_schur(rnd)
+            with STAGES.stage("ckpt_save"):
+                ckpt.drop_schur(rnd)
 
     # -- factor -------------------------------------------------------------
 
@@ -957,8 +973,12 @@ class TorchMultifrontal:
         """Walk the rounds in dependency order, freeing each Schur stack
         as soon as its last consumer has extend-added it. With a round
         checkpointer, rounds with a valid checkpoint are loaded, the others
-        computed and saved (see the class docstring)."""
+        computed and saved (see the class docstring); ``loaded_rounds``
+        lists the rounds that came from the checkpoints. Each round is a
+        scope of the stage timer (utils.profiling.STAGES), as are its
+        assembly, extend-add, partial factorization and checkpoint I/O."""
         ckpt = self._ckpt
+        self.loaded_rounds = []
         factors = []
         schur: list = [None] * len(self.plans)
         uses = [0] * len(self.plans)
@@ -983,80 +1003,90 @@ class TorchMultifrontal:
             self._mesh_barrier()
         t_round = time.perf_counter()
         for rnd, plan in enumerate(self.plans):
-            if rnd in done:
-                need_s = (plan.M > 0
-                          and any(c not in done for c in consumers[rnd]))
-                loaded = ckpt.load_round(rnd, plan, self, need_schur=need_s,
-                                         factors=not self._offload)
-                if loaded is not None:
-                    for g in plan.child_groups:
-                        uses[g.src_round] -= 1
-                        if uses[g.src_round] == 0:
-                            schur[g.src_round] = None
-                            self._drop_schur(ckpt, g.src_round)
-                    factors.append(loaded[:4])
-                    schur[rnd] = loaded[4]
-                    # schur[rnd] must hold the stack's only reference, or
-                    # it outlives its last consumer
-                    del loaded
-                    continue
-                done.discard(rnd)   # checkpoint vanished mid-run: recompute
-            cc = self._round_consts(rnd)
-            F = ck.ell_assemble(nzval_ext, cc["a_col"], cc["a_csrc"],
-                                cc["a_pos"], cc["a_src"], cc["p_arr"],
-                                plan.N, plan.P, cc["spill"])
-            drops: list[int] = []
-            for (src_rnd, ss, ds, inv, waves), xplan in zip(
-                    cc["groups"], cc["exchange"]):
-                S_src = self._source_schur(src_rnd, schur[src_rnd], xplan)
-                if waves:
-                    extend_add(F, S_src, ss, ds, inv, waves)
-                del S_src
-                uses[src_rnd] -= 1
-                if uses[src_rnd] == 0:
-                    # free the device memory now, but delete the source's
-                    # file only once this round's own checkpoint is on
-                    # disk: a death between the two must leave a
-                    # resumable prefix
-                    schur[src_rnd] = None
-                    drops.append(src_rnd)
-            # a mesh engine never takes the library LU (mf_jax: no native
-            # LU under a mesh), so its tree-top pivots are the panel's
-            K, U12, L21, S, perm = partial_factor(
-                F, plan.P, cc["p_arr"], self._tau, self._pack_bs,
-                allow_native_lu=self.mesh is None)
-            del F
-            lay = self.layouts[rnd]
-            if lay.kind == "row":
-                K, U12, L21, perm, self.kd[rnd] = shard_round(
-                    lay, plan, K, U12, L21, perm, self._own)
-                S = shard_schur(lay, plan, S, self._own)
-            schur[rnd] = S if uses[rnd] > 0 else None
-            if ckpt is not None:
-                # the host copy in either save synchronizes the round
-                if rnd not in repair:
-                    self._save_round(ckpt, rnd, plan, K, U12, L21, perm,
-                                     schur[rnd])
-                elif schur[rnd] is not None and plan.M > 0:
-                    self._save_schur(ckpt, rnd, S)
-                for src in drops:
-                    self._drop_schur(ckpt, src)
-                now = time.perf_counter()
-                dbg(1, f"factor round {rnd + 1}/{len(self.plans)} "
-                       f"B={plan.B} P={plan.P} N={plan.N} "
-                       f"({now - t_round:.1f}s)"
-                       + (" [repair]" if rnd in repair else ""))
-                t_round = now
-            if self._offload:
-                factors.append((None,) * 4)
-                self.kd[rnd] = None
-            else:
-                factors.append((K, U12, L21, perm))
-            del K, U12, L21, S, perm
-            if self._stop_after is not None and rnd >= self._stop_after:
-                dbg(1, f"factor stop-after: handing off at round {rnd} "
-                       f"({len(self.plans) - 1 - rnd} rounds remain)")
-                return tuple(factors)
+            with STAGES.round(rnd, plan):
+                if rnd in done:
+                    need_s = (plan.M > 0
+                              and any(c not in done for c in consumers[rnd]))
+                    with STAGES.stage("ckpt_load"):
+                        loaded = ckpt.load_round(rnd, plan, self,
+                                                 need_schur=need_s,
+                                                 factors=not self._offload)
+                    if loaded is not None:
+                        self.loaded_rounds.append(rnd)
+                        for g in plan.child_groups:
+                            uses[g.src_round] -= 1
+                            if uses[g.src_round] == 0:
+                                schur[g.src_round] = None
+                                self._drop_schur(ckpt, g.src_round)
+                        factors.append(loaded[:4])
+                        schur[rnd] = loaded[4]
+                        # schur[rnd] must hold the stack's only reference, or
+                        # it outlives its last consumer
+                        del loaded
+                        continue
+                    # the checkpoint vanished mid-run: recompute
+                    done.discard(rnd)
+                cc = self._round_consts(rnd)
+                with STAGES.stage("assemble"):
+                    F = ck.ell_assemble(nzval_ext, cc["a_col"], cc["a_csrc"],
+                                        cc["a_pos"], cc["a_src"],
+                                        cc["p_arr"], plan.N, plan.P,
+                                        cc["spill"])
+                drops: list[int] = []
+                with STAGES.stage("extend_add"):
+                    for (src_rnd, ss, ds, inv, waves), xplan in zip(
+                            cc["groups"], cc["exchange"]):
+                        S_src = self._source_schur(src_rnd, schur[src_rnd],
+                                                   xplan)
+                        if waves:
+                            extend_add(F, S_src, ss, ds, inv, waves)
+                        del S_src
+                        uses[src_rnd] -= 1
+                        if uses[src_rnd] == 0:
+                            # free the device memory now, but delete the
+                            # source's file only once this round's own
+                            # checkpoint is on disk: a death between the
+                            # two must leave a resumable prefix
+                            schur[src_rnd] = None
+                            drops.append(src_rnd)
+                # a mesh engine never takes the library LU (mf_jax: no native
+                # LU under a mesh), so its tree-top pivots are the panel's
+                with STAGES.stage("partial_factor"):
+                    K, U12, L21, S, perm = partial_factor(
+                        F, plan.P, cc["p_arr"], self._tau, self._pack_bs,
+                        allow_native_lu=self.mesh is None)
+                del F
+                lay = self.layouts[rnd]
+                if lay.kind == "row":
+                    K, U12, L21, perm, self.kd[rnd] = shard_round(
+                        lay, plan, K, U12, L21, perm, self._own)
+                    S = shard_schur(lay, plan, S, self._own)
+                schur[rnd] = S if uses[rnd] > 0 else None
+                if ckpt is not None:
+                    # the host copy in either save synchronizes the round
+                    if rnd not in repair:
+                        self._save_round(ckpt, rnd, plan, K, U12, L21, perm,
+                                         schur[rnd])
+                    elif schur[rnd] is not None and plan.M > 0:
+                        self._save_schur(ckpt, rnd, S)
+                    for src in drops:
+                        self._drop_schur(ckpt, src)
+                    now = time.perf_counter()
+                    dbg(1, f"factor round {rnd + 1}/{len(self.plans)} "
+                           f"B={plan.B} P={plan.P} N={plan.N} "
+                           f"({now - t_round:.1f}s)"
+                           + (" [repair]" if rnd in repair else ""))
+                    t_round = now
+                if self._offload:
+                    factors.append((None,) * 4)
+                    self.kd[rnd] = None
+                else:
+                    factors.append((K, U12, L21, perm))
+                del K, U12, L21, S, perm
+                if self._stop_after is not None and rnd >= self._stop_after:
+                    dbg(1, f"factor stop-after: handing off at round {rnd} "
+                           f"({len(self.plans) - 1 - rnd} rounds remain)")
+                    return tuple(factors)
         if ckpt is not None:
             # every round is on disk now: no resume needs a Schur stack
             for rnd, plan in enumerate(self.plans):
@@ -1067,8 +1097,9 @@ class TorchMultifrontal:
                        f"{ckpt.dir}")
                 for rnd, plan in enumerate(self.plans):
                     if factors[rnd][0] is None:
-                        factors[rnd] = ckpt.load_round(
-                            rnd, plan, self, need_schur=False)[:4]
+                        with STAGES.stage("ckpt_load"):
+                            factors[rnd] = ckpt.load_round(
+                                rnd, plan, self, need_schur=False)[:4]
         return tuple(factors)
 
     # -- solve --------------------------------------------------------------

@@ -15,7 +15,6 @@ Run from the repository root: ``python3 scripts/panel_sweep.py``.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 from pathlib import Path
 
@@ -24,6 +23,8 @@ sys.path.insert(0, str(REPO))
 
 import torch  # noqa: E402
 
+from nk_ocn_tracer_jacobian_precond_tpu_torch.device import (  # noqa: E402
+    card_name)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (  # noqa: E402
     cuda_kernels as ck)
 
@@ -94,10 +95,7 @@ def main() -> int:
                 f"C={c} {t:.4f}" for c, t in times.items())
                 + f"; fastest C={best}, rule C={pick[0]} "
                 f"({times[pick[0]]:.4f} ms)", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip())
+    print(card_name(torch.device("cuda")))
     return 0
 
 

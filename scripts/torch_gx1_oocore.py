@@ -40,7 +40,6 @@ import contextlib
 import io
 import json
 import shutil
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -53,7 +52,7 @@ sys.path.insert(0, str(REPO))
 import torch  # noqa: E402
 
 from nk_ocn_tracer_jacobian_precond_tpu_torch.device import (  # noqa: E402
-    resolve_device)
+    card_name, resolve_device)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.gen_a import (  # noqa: E402
     run_gen_a)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.solve import (  # noqa: E402
@@ -67,7 +66,7 @@ from nk_ocn_tracer_jacobian_precond_tpu_torch.ops import (  # noqa: E402
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.checkpoint import (  # noqa: E402
     FactorRoundCheckpointer)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.memplan import (  # noqa: E402
-    engine_round_peaks, plan_memory)
+    checkpoint_disk_plan, engine_round_peaks, plan_memory)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (  # noqa: E402
     equilibrate)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf_torch import (  # noqa: E402
@@ -105,43 +104,6 @@ def make_problem(workdir: Path, dims: dict, seed: int) -> str:
     return str(mat)
 
 
-def disk_plan(sym, plans, itemsize: int):
-    """(live, written) per round of a factor-only pass: the bytes it holds
-    on disk while it saves the round (every round file so far, v3 trimmed:
-    each front's p*p + 2*p*m entries, and the padded Schur file of every
-    round whose last consumer has not yet been saved; see
-    mf_torch.TorchMultifrontal._factor_rounds) and the bytes it has
-    written up to then, deleted Schur files included."""
-    last = [-1] * len(plans)
-    for rnd, plan in enumerate(plans):
-        for g in plan.child_groups:
-            last[g.src_round] = max(last[g.src_round], rnd)
-    files = written = 0
-    live, wrote = [], []
-    for rnd, plan in enumerate(plans):
-        size = itemsize * sum(f.p * f.p + 2 * f.p * (f.n - f.p)
-                              for f in (sym.fronts[n]
-                                        for n in plan.node_ids))
-        files += size
-        written += size + (itemsize * plan.B * plan.M * plan.M
-                           if last[rnd] > rnd else 0)
-        schur = sum(itemsize * p.B * p.M * p.M
-                    for s, p in enumerate(plans[:rnd + 1]) if last[s] >= rnd)
-        live.append(files + schur)
-        wrote.append(written)
-    return live, wrote
-
-
-def card_name() -> str | None:
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60)
-    except OSError:
-        return None
-    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else None
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workdir", required=True)
@@ -164,8 +126,7 @@ def main(argv=None) -> int:
     ckpt_dir = workdir / "rounds"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     dims = dict(imt=args.imt, jmt=args.jmt, km=args.km)
-    result: dict = dict(grid=dims, seed=args.seed, card=card_name(),
-                        torch=torch.__version__)
+    result: dict = dict(grid=dims, seed=args.seed, torch=torch.__version__)
 
     def done(rc: int = 0) -> int:
         result["total_s"] = time.perf_counter() - t_start
@@ -196,6 +157,7 @@ def main(argv=None) -> int:
     say("memplan:\n  " + "\n  ".join(result["memplan"]))
 
     device = resolve_device(args.device)
+    result["card"] = card_name(device)
     prec = torch.float64
     t0 = time.perf_counter()
     sym = symbolic_from_matrix(maps, matrix)
@@ -209,7 +171,7 @@ def main(argv=None) -> int:
     card = (torch.cuda.mem_get_info(device)[1] if device.type == "cuda"
             else None)
     free = shutil.disk_usage(ckpt_dir).free
-    peaks, wrote = disk_plan(sym, plans, prec.itemsize)
+    peaks, wrote = checkpoint_disk_plan(sym, plans, prec.itemsize)
     result.update(rounds=len(plans),
                   jax_plan_schur_transient_gb=(mp.schur_peak_per_device
                                                + mp.transient_peak_per_device)

@@ -451,3 +451,33 @@ def test_masked_substitution_on_card_matches_plain(card):
                                        atol=1e-12)
         torch.testing.assert_close(out["cuda"].cpu(), out["cpu"],
                                    rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_stage_timer_moves_no_launch_on_card(card, problem):
+    """drivers.profile on the card: a refactor launches the same kernels
+    with the stage timer on as off, the per-round rows are the plans'
+    rounds, and the stages plus the walk add up to the synchronized
+    wall."""
+    import math
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.profile import (
+        STAGE_NAMES, profile_refactor)
+    matrix, maps = problem
+    fac = MultifrontalFactorization(matrix, maps=maps, device=card)
+    before = dict(ck.LAUNCHES)
+    fac.refactor()
+    off = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+    before = dict(ck.LAUNCHES)
+    prof = profile_refactor(fac, card)      # a warm and a timed refactor
+    both = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+    assert both == {k: 2 * v for k, v in off.items()}
+    plans = fac.engine.plans
+    assert off["ell_assemble_f64"] == len(plans)
+    assert off["pivoted_panel_f64"] == prof["calls"]["panel"] == sum(
+        math.ceil(p.P / 128) for p in plans if p.B > 2)
+    assert [(r["B"], r["P"], r["N"], r["children"]) for r in prof["rows"]] \
+        == [(p.B, p.P, p.N, len(p.child_groups)) for p in plans]
+    for r in prof["rows"]:
+        assert all(r[k] >= 0 for k in STAGE_NAMES + ("walk",))
+    assert abs(sum(prof["totals"].values()) + prof["walk_ms"]
+               - prof["wall_ms"]) <= 0.01 * prof["wall_ms"]

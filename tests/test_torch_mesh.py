@@ -9,8 +9,9 @@ than one band raises: the sharded apply never computes on one device.
 
 ``band_world`` is what tests/test_torch_dist_stencil.py runs in each rank
 of a gloo world on the CPU (``spawn_world``), ``solver_world`` what
-tests/test_torch_dist_solver.py runs and ``factors_world`` what
-tests/test_torch_reference_configs.py runs. This file imports no jax, so the
+tests/test_torch_dist_solver.py runs, ``factors_world`` what
+tests/test_torch_reference_configs.py runs and ``profile_world`` what
+tests/test_torch_profile.py runs. This file imports no jax, so the
 spawned ranks do not load it.
 """
 
@@ -265,6 +266,40 @@ def factors_world(rank: int, world: int, store: str, mat: str, B,
                             for f in eng.global_factors()],
                    small_lu_calls=len(small), X=fac.solve(B))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def profile_world(rank: int, world: int, store: str, mat: str,
+                  out_dir: str) -> None:
+    """One rank of a gloo world of ``world`` ranks profiling the mesh
+    engine's refactor of ``mat`` (drivers.profile.profile_refactor, the
+    facade with ``n_devices=world``): writes the profile, the plans and
+    whether the profiled factors equal an unprofiled refactor's to
+    ``out_dir``/rank<r>.pt."""
+    torch.set_num_threads(1)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.profile import (
+        profile_refactor)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        load_ind_maps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        read_matrix_file)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    init_process_group("cpu", rank, world, store)
+    try:
+        fac = MultifrontalFactorization(read_matrix_file(mat),
+                                        maps=load_ind_maps(mat),
+                                        device="cpu", n_devices=world)
+        prof = profile_refactor(fac, "cpu")
+        timed = [tuple(t.clone() for t in f) for f in fac.engine.factors]
+        fac.refactor()
+        same = all(torch.equal(a, b) for fa, fb in zip(
+            timed, fac.engine.factors) for a, b in zip(fa, fb))
+        torch.save(dict(prof=prof, same=same, plans=[
+            (p.B, p.P, p.N, len(p.child_groups)) for p in fac.engine.plans],
+            layouts=[lay.kind for lay in fac.engine.layouts]),
+            os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 

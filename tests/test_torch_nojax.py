@@ -45,8 +45,9 @@ SCRIPT = (BLOCKER + textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     assert len(mods) >= 30, mods
-    for m in ("drivers.bench", "parallel.mesh", "parallel.demo",
-              "parallel.collectives", "parallel.dryrun", "entry"):
+    for m in ("drivers.bench", "drivers.profile", "parallel.mesh",
+              "parallel.demo", "parallel.collectives", "parallel.dryrun",
+              "entry"):
         assert "{pkg}." + m in mods, m
 
     from {pkg}.drivers.gen_a import run_gen_a
@@ -163,6 +164,9 @@ def test_no_module_imports_the_jax_package():
              + sorted((REPO / "scripts").glob("torch_*.py"))
              + [REPO / "scripts" / "panel_sweep.py"])
     assert len(files) >= 30
+    for must in (REPO / PKG / "drivers" / "profile.py",
+                 REPO / "scripts" / "torch_gx1_dist_run.py"):
+        assert must in files, must
     bad = []
     for f in files:
         for line, mod in _imported_modules(f, _package_of(f)):
