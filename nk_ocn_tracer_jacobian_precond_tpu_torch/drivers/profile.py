@@ -16,7 +16,10 @@ extend-add, the panel kernel (K1 at f64, K2 at f32), the row gather, the
 TRSMs, the trailing GEMM, the pack, the tree-top library LU, the rest of
 ``partial_factor``, checkpoint I/O and the walk between them;
 ``ranked_costs`` the JAX script's table; ``device_busy`` torch.profiler's
-kernel count and busy share of an unsynchronized refactor.
+kernel count and busy share of an unsynchronized refactor, and its idle
+time by the program's innermost span (``utils.profiling.span``).
+``timeline``, ``device_gaps``, ``span_totals`` and ``idle_under`` are its
+arithmetic over the profiler's raw records, for any traced stretch.
 
 Run as ``python -m nk_ocn_tracer_jacobian_precond_tpu_torch.drivers.profile
 [--size tiny|small|gx3|gx3deep | --matrix FILE] [--leaf 16] [--prec f64]
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import tempfile
@@ -43,7 +47,7 @@ from ..grid.indmap import load_ind_maps
 from ..io.matrixfile import read_matrix_file
 from ..solver.mf import MultifrontalFactorization
 from ..solver.symbolic import symbolic_from_matrix
-from ..utils.profiling import STAGES
+from ..utils.profiling import PREFIX, STAGES
 from .nk_loop import SIZES, build_problem, residuals
 
 # the stages of one round, in the order of the round loop, with the column
@@ -60,6 +64,9 @@ STAGE_NAMES = tuple(name for name, _ in STAGE_COLUMNS)
 FACTOR_STAGES = ("panel", "row_gather", "trsm", "gemm", "pack",
                  "treetop_lu", "partial_factor")
 TOP_KERNELS = 6
+# the kineto activity of a user range mirrored onto the device's timeline
+ANNOTATION = "gpu_user_annotation"
+NO_SPAN = "(no program span)"
 # the residual contract: the solve refines to it, and the CLI exits 0 only
 # when every column's relative residual meets it
 CONTRACT = 1e-10
@@ -121,12 +128,83 @@ def ranked_costs(rows) -> list:
             for k, v in sorted(costs.items(), key=lambda kv: -kv[1])]
 
 
+def timeline(events) -> tuple[list, list]:
+    """The host's and the device's records of torch.profiler's raw kineto
+    ``events`` as (start s, end s, name) lists. The annotation ranges the
+    profiler mirrors onto the device's timeline (each user range over the
+    kernels launched inside it) are not device work: they are left out.
+    Times count from the first record's start (seconds since the epoch
+    would keep only tenths of a microsecond)."""
+    host, dev = [], []
+    base = None
+    for e in events:
+        if base is None:
+            base = e.start_ns()
+        t0 = (e.start_ns() - base) * 1e-9
+        iv = (t0, t0 + e.duration_ns() * 1e-9, e.name())
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            host.append(iv)
+        elif not _annotation(e):
+            dev.append(iv)
+    return host, dev
+
+
+def _annotation(e) -> bool:
+    """Whether a device-side record is a mirrored user range: its flag,
+    or its kineto activity where torch names it (2.13 on)."""
+    kind = getattr(e, "activity_type", None)
+    return e.is_user_annotation() or (kind is not None
+                                      and kind() == ANNOTATION)
+
+
+def device_gaps(dev, w0: float, w1: float) -> tuple[float, list]:
+    """The busy seconds of the device inside [w0, w1] (the union of its
+    records' intervals) and the idle gaps between them, [(start, end)]."""
+    busy, end, gaps = 0.0, w0, []
+    for a, b, _ in sorted((max(a, w0), min(b, w1), n) for a, b, n in dev
+                          if b > w0 and a < w1):
+        if a > end:
+            gaps.append((end, a))
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if w1 > end:
+        gaps.append((end, w1))
+    return busy, gaps
+
+
+def span_totals(host, w0: float, w1: float) -> dict:
+    """{name: [seconds, count]} of the program's spans (``nk.*`` host
+    ranges) that start inside [w0, w1]."""
+    out: dict = defaultdict(lambda: [0.0, 0])
+    for a, b, name in host:
+        if name.startswith(PREFIX) and w0 <= a < w1:
+            out[name][0] += b - a
+            out[name][1] += 1
+    return dict(out)
+
+
+def idle_under(host, gaps) -> dict:
+    """{name: seconds}: each idle gap put down to the innermost program
+    span (the shortest ``nk.*`` host range) covering its midpoint, or to
+    NO_SPAN."""
+    spans = [(a, b, n) for a, b, n in host if n.startswith(PREFIX)]
+    out: dict = defaultdict(float)
+    for g0, g1 in gaps:
+        mid = 0.5 * (g0 + g1)
+        cover = [(b - a, n) for a, b, n in spans if a <= mid <= b]
+        out[min(cover)[1] if cover else NO_SPAN] += g1 - g0
+    return dict(out)
+
+
 def device_busy(fac, device, trace_dir: str | None = None) -> dict:
     """torch.profiler over one refactor with the stage timer inactive: the
     CUDA kernels launched, the union of their intervals as a share of the
-    wall, and the TOP_KERNELS kernels by count and by summed device ms; with
-    ``trace_dir`` a Chrome trace is written there. On the CPU there is no
-    device time to read: "not measured"."""
+    wall, the TOP_KERNELS kernels by count and by summed device ms, and
+    the device's idle ms inside the facade's ``nk.mf.factor`` span by the
+    innermost span (``idle_under``); with ``trace_dir`` a Chrome trace is
+    written there. On the CPU there is no device time to read: "not
+    measured"."""
     from torch.profiler import ProfilerActivity, profile
     device = torch.device(device)
     if device.type != "cuda":
@@ -144,30 +222,26 @@ def device_busy(fac, device, trace_dir: str | None = None) -> dict:
                        f"{os.getpid()}.json"))
     # the profiler's raw records: prof.events() builds a Python tree of
     # every host and device event, minutes for one gx3deep refactor
-    spans = []
+    host, dev = timeline(prof.profiler.kineto_results.events())
     count: dict = defaultdict(int)
     us: dict = defaultdict(float)
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        t0, dt = e.start_ns() / 1e3, e.duration_ns() / 1e3
-        spans.append((t0, t0 + dt))
-        count[e.name()] += 1
-        us[e.name()] += dt
-    spans.sort()
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    for a, b, name in dev:
+        count[name] += 1
+        us[name] += (b - a) * 1e6
+    busy = device_gaps(dev, -math.inf, math.inf)[0] * 1e6
+    factor = [(a, b) for a, b, n in host if n == PREFIX + "mf.factor"]
+    idle = (idle_under(host, device_gaps(dev, *factor[0])[1])
+            if factor and dev else {})
     return dict(profiled_refactor_ms=wall_us / 1e3,
-                device_kernels=len(spans),
-                device_busy_share=(busy / wall_us if spans
+                device_kernels=len(dev),
+                device_busy_share=(busy / wall_us if dev
                                    else "not measured"),
                 top_kernels_by_count=sorted(
                     count.items(), key=lambda kv: -kv[1])[:TOP_KERNELS],
                 top_kernels_by_ms=[(k, v / 1e3) for k, v in sorted(
-                    us.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]])
+                    us.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]],
+                idle_under_ms={k: v * 1e3 for k, v in sorted(
+                    idle.items(), key=lambda kv: -kv[1])})
 
 
 def timed_solve(fac, matrix, B: np.ndarray, device) -> dict:

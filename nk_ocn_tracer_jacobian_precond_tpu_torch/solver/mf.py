@@ -35,6 +35,7 @@ from ..device import resolve_device, resolve_precision
 from ..io.matrixfile import SparseMatrix
 from ..parallel.mesh import make_mesh
 from ..utils import dbg, timed
+from ..utils.profiling import span
 from .api import iterative_refinement
 from .checkpoint import load_factors, save_factors
 from .memplan import plan_memory
@@ -268,16 +269,19 @@ class MultifrontalFactorization:
         if matrix is not None:
             t0 = time.perf_counter()
             self.matrix = matrix
-            self.A = matrix.to_scipy()
+            with span("mf.to_scipy"):
+                self.A = matrix.to_scipy()
             t1 = time.perf_counter()
-            self._fac_matrix, self.dr, self.dc = self._scaled(matrix)
+            with span("mf.equilibrate"):
+                self._fac_matrix, self.dr, self.dc = self._scaled(matrix)
             t2 = time.perf_counter()
             if self._refiner is not None:
-                self._refiner.rebind(self.matrix, dr=self.dr, dc=self.dc)
+                with span("mf.rebind"):
+                    self._refiner.rebind(self.matrix, dr=self.dr, dc=self.dc)
             self.timings.update(to_scipy=t1 - t0, equilibrate=t2 - t1,
                                 rebind=time.perf_counter() - t2)
         t0 = time.perf_counter()
-        with timed("numeric refactorization"):
+        with span("mf.factor"), timed("numeric refactorization"):
             if self.impl == "numpy":
                 self.engine._factorize(self._fac_matrix)
             else:
@@ -341,27 +345,29 @@ class MultifrontalFactorization:
                 f"float64 factors need ~{peak / 1e9:.1f} GB vs "
                 f"~{lim / 1e9:.1f} GB on {self.device}: rerun with "
                 f"precision='f64' on a larger card", RuntimeWarning,
-                stacklevel=3)
+                stacklevel=4)
             return False
-        dbg(1, f"solve escalation: float32 factors left max relative "
-               f"residual {rel:.3e} (> {100 * self.refine_tol:.1e}); "
-               f"refactoring in float64")
-        self.escalation = dict(max_rel=float(rel),
-                               refiner=dict(self._refiner.stats))
-        # free the float32 engine (factors, device constants) and the
-        # refiner before the float64 build: both resident at once is an
-        # avoidable OOM
-        ckpt_dir = self.engine._ckpt_dir
-        self.engine = self._refiner = None
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        with timed("float64 escalation refactorization"):
-            self.engine = TorchMultifrontal(
-                self.sym, self._fac_matrix, self.device, prec=torch.float64,
-                checkpoint_dir=ckpt_dir, **self._engine_kw)
-        self.timings["escalate"] = time.perf_counter() - t0
-        self.timings.update(self.engine.timings)
+        with span("mf.escalate"):
+            dbg(1, f"solve escalation: float32 factors left max relative "
+                   f"residual {rel:.3e} (> {100 * self.refine_tol:.1e}); "
+                   f"refactoring in float64")
+            self.escalation = dict(max_rel=float(rel),
+                                   refiner=dict(self._refiner.stats))
+            # free the float32 engine (factors, device constants) and the
+            # refiner before the float64 build: both resident at once is an
+            # avoidable OOM
+            ckpt_dir = self.engine._ckpt_dir
+            self.engine = self._refiner = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with timed("float64 escalation refactorization"):
+                self.engine = TorchMultifrontal(
+                    self.sym, self._fac_matrix, self.device,
+                    prec=torch.float64, checkpoint_dir=ckpt_dir,
+                    **self._engine_kw)
+            self.timings["escalate"] = time.perf_counter() - t0
+            self.timings.update(self.engine.timings)
         return True
 
     def solve(self, b: np.ndarray, refine: bool = True) -> np.ndarray:
@@ -372,20 +378,27 @@ class MultifrontalFactorization:
             with timed("mf solve"):
                 X = self._precond_solve(B)
             return X[:, 0] if single else X
-        if self.impl == "numpy":
-            X = self._host_refined_solve(B)
-            return X[:, 0] if single else X
+        with span("mf.solve"):
+            X = (self._host_refined_solve(B) if self.impl == "numpy"
+                 else self._device_refined_solve(B))
+        return X[:, 0] if single else X
+
+    def _device_refined_solve(self, B: np.ndarray) -> np.ndarray:
+        """The device refiner's solve, checked on the host; escalated to
+        float64 factors when float32 ones leave it short of the target."""
         X = self._device_refiner().solve(B)
-        rel = _rel_residuals(self.A, X, B)
+        with span("mf.check"):
+            rel = _rel_residuals(self.A, X, B)
         if (rel.max() > 100 * self.refine_tol
                 and self._maybe_escalate_precision(rel.max())):
             X = self._device_refiner().solve(B)
-            rel = _rel_residuals(self.A, X, B)
+            with span("mf.check"):
+                rel = _rel_residuals(self.A, X, B)
         if rel.max() > 100 * self.refine_tol:
             warnings.warn(f"device GMRES-IR stalled at max relative "
                           f"residual {rel.max():.3e}", RuntimeWarning,
-                          stacklevel=2)
-        return X[:, 0] if single else X
+                          stacklevel=3)
+        return X
 
     def _host_refined_solve(self, B: np.ndarray) -> np.ndarray:
         """The JAX facade's host branch (its solve without x64): plain

@@ -66,7 +66,7 @@ import torch
 from ..io.matrixfile import SparseMatrix
 from ..parallel import collectives as coll
 from ..utils import dbg, timed
-from ..utils.profiling import STAGES
+from ..utils.profiling import STAGES, span
 from . import cuda_kernels as ck
 from .checkpoint import FactorRoundCheckpointer
 from .memplan import plan_memory
@@ -1120,24 +1120,28 @@ class TorchMultifrontal:
         if self.factors is None:
             raise RuntimeError("no numeric factors: call refactor() first")
         mesh = self.mesh
-        if mesh is not None and mesh.rhs_groups \
-                and W.shape[1] % mesh.shape[1] == 0:
-            w = W.shape[1] // mesh.shape[1]
-            c = mesh.coords[1]
-            Wc = self._sweep(W[:, c * w:(c + 1) * w].contiguous())
-            return coll.all_gather(Wc, mesh.rhs_group, dim=1)
-        return self._sweep(W)
+        with span("engine.sweep"):
+            if mesh is not None and mesh.rhs_groups \
+                    and W.shape[1] % mesh.shape[1] == 0:
+                w = W.shape[1] // mesh.shape[1]
+                c = mesh.coords[1]
+                Wc = self._sweep(W[:, c * w:(c + 1) * w].contiguous())
+                return coll.all_gather(Wc, mesh.rhs_group, dim=1)
+            return self._sweep(W)
 
     def _sweep(self, W: torch.Tensor) -> torch.Tensor:
         """The forward then backward sweep over all rounds, in place; hi
         rounds (``_hi_round``) substitute in float64 on transient upcasts
-        of the factors and store back at W's dtype."""
+        of the factors and store back at W's dtype. Each round's
+        substitution is a span, its round number in the range's arguments."""
         consts = [self._round_consts(r) for r in range(len(self.plans))]
         hi = [self._hi_round(p) for p in self.plans]
         for rnd in range(len(self.plans)):
-            W = self._fwd(rnd, W, consts[rnd], hi[rnd])
+            with span("engine.fwd", round=rnd):
+                W = self._fwd(rnd, W, consts[rnd], hi[rnd])
         for rnd in reversed(range(len(self.plans))):
-            W = self._bwd(rnd, W, consts[rnd], hi[rnd])
+            with span("engine.bwd", round=rnd):
+                W = self._bwd(rnd, W, consts[rnd], hi[rnd])
         return W
 
     def _fwd(self, rnd: int, W, cc: dict, hi: bool):

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..utils import dbg, timed
+from ..utils.profiling import span
 
 # FGMRES inner depth: the first cycles use M_START vectors, doubled up to
 # M_MAX when a cycle gains under ~1.5 digits; a fused dispatch runs up to
@@ -96,7 +97,8 @@ class DeviceRefiner:
     the last solve: phases taken, plain-IR applies to the host residual
     ("host_applies"), device cycles, outer iterations, final depth, the max relative residual of
     every host-checked iterate ("rels") and of the one returned
-    ("best_rel")."""
+    ("best_rel"), and the host residuals in extended precision
+    ("extended")."""
 
     def __init__(self, engine, matrix, dr=None, dc=None,
                  tol: float = 1e-12, giveup: float = 0.25):
@@ -161,6 +163,17 @@ class DeviceRefiner:
         R = B.astype(np.longdouble) - self._A_ext @ X.astype(np.longdouble)
         return R.astype(np.float64)
 
+    def _residual(self, B: np.ndarray, X: np.ndarray, bnorm: np.ndarray,
+                  extended: bool, stats: dict):
+        """The host residual of X (B itself while X is zero) and its max
+        relative norm, in a span; ``stats`` counts the extended ones."""
+        with span("refine.host_residual_ext" if extended
+                  else "refine.host_residual"):
+            R = self._host_residual(B, X, extended) if X.any() else B
+            rel = float((np.linalg.norm(R, axis=0) / bnorm).max())
+        stats["extended"] += extended
+        return R, rel
+
     # -- device building blocks ---------------------------------------------
 
     def _spmv(self, x: torch.Tensor) -> torch.Tensor:
@@ -181,7 +194,8 @@ class DeviceRefiner:
     def _correct(self, R: np.ndarray) -> np.ndarray:
         """One plain-refinement correction M^-1 R of the host residual R
         (n, nrhs), float64 on the host."""
-        return self._precond(self._put(R)).cpu().numpy()
+        with span("refine.correct"):
+            return self._precond(self._put(R)).cpu().numpy()
 
     def _cycle(self, b: torch.Tensor, m: int, dtype: torch.dtype):
         """One restarted-FGMRES correction in ``dtype``: solve A d ~= b
@@ -253,11 +267,10 @@ class DeviceRefiner:
         Xd = None    # device iterate equal to X (fused outers)
         X_best, rel_best = X, np.inf
         stats = dict(phases=[], host_applies=0, cycles=0, outers=0,
-                     rels=[])
+                     rels=[], extended=0)
         with timed("refine (gmres-ir3)"):
             for outer in range(3 * MAX_CYCLES):
-                R = self._host_residual(B, X, extended) if X.any() else B
-                rel = float((np.linalg.norm(R, axis=0) / bnorm).max())
+                R, rel = self._residual(B, X, bnorm, extended, stats)
                 stats["outers"] = outer + 1
                 stats["rels"].append(rel)
                 dbg(1, f"refine outer {outer} ({phase}): max rel residual "
@@ -311,8 +324,7 @@ class DeviceRefiner:
                         dbg(1, "refine: converged to the attainable floor")
                         break
                     extended = True
-                    R = self._host_residual(B, X, True)
-                    rel = float((np.linalg.norm(R, axis=0) / bnorm).max())
+                    R, rel = self._residual(B, X, bnorm, True, stats)
                     stats["rels"].append(rel)
                     dbg(1, f"refine: polish stalled within 10x of tol; "
                            f"extended-precision residual {rel:.3e}")
@@ -333,22 +345,24 @@ class DeviceRefiner:
                     stats["host_applies"] += 1
                     Xd = None
                 elif phase == "polish":
-                    d = self._cycle(self._put(R.astype(np.float32)),
-                                    self._m, torch.float32)
-                    X = X + d.cpu().numpy().astype(np.float64)
+                    with span("refine.polish"):
+                        d = self._cycle(self._put(R.astype(np.float32)),
+                                        self._m, torch.float32)
+                        X = X + d.cpu().numpy().astype(np.float64)
                     stats["cycles"] += 1
                     Xd = None
                 else:
                     dtype = (torch.float32 if phase == "gmres"
                              else torch.float64)
                     m_cur = self._m if phase == "gmres" else M_MAX
-                    if Bd is None:
-                        Bd = self._put(B)
-                    if Xd is None:
-                        Xd = (torch.zeros_like(Bd) if not X.any()
-                              else self._put(X))
-                    Xd, rel_est, k = self._fused(Bd, Xd, m_cur, dtype)
-                    X = Xd.cpu().numpy()
+                    with span("refine.fused"):
+                        if Bd is None:
+                            Bd = self._put(B)
+                        if Xd is None:
+                            Xd = (torch.zeros_like(Bd) if not X.any()
+                                  else self._put(X))
+                        Xd, rel_est, k = self._fused(Bd, Xd, m_cur, dtype)
+                        X = Xd.cpu().numpy()
                     fused_stalled = k < MAX_CYCLES and rel_est > self.tol
                     stats["cycles"] += k
                     dbg(1, f"refine: fused {k} x m={m_cur} cycles, device "
@@ -356,8 +370,7 @@ class DeviceRefiner:
         # an exhausted outer budget leaves the last correction unchecked:
         # give it its chance, then return the best iterate seen
         if outer == 3 * MAX_CYCLES - 1:
-            R = B - self.A @ X
-            rel = float((np.linalg.norm(R, axis=0) / bnorm).max())
+            R, rel = self._residual(B, X, bnorm, False, stats)
             if rel < rel_best:
                 rel_best, X_best = rel, X
         stats.update(m=self._m, best_rel=rel_best)

@@ -16,6 +16,8 @@ import os
 import sys
 import time
 
+from .profiling import span
+
 # NK_DBG seeds the level for entry points that don't take a -D flag
 # (bench.py, library use); set_dbg_lvl (the -D flag) overrides it.
 _dbg_lvl = int(os.environ.get("NK_DBG", "0") or 0)
@@ -41,10 +43,12 @@ def dbg(lvl: int, msg: str) -> None:
 
 @contextlib.contextmanager
 def timed(name: str, lvl: int = 1):
-    """Time a phase; at dbg level >= lvl report its wall-clock on exit."""
+    """Time a phase; at dbg level >= lvl report its wall-clock on exit.
+    The phase is a ``profiling.span`` of its name too."""
     t0 = time.perf_counter()
     try:
-        yield
+        with span(name):
+            yield
     finally:
         if _dbg_lvl >= lvl:
             print(f"(0) {name}: {time.perf_counter() - t0:.3f}s", file=sys.stderr, flush=True)

@@ -1,57 +1,53 @@
 """Profiling and observability.
 
 The reference's only perf visibility was SuperLU's PStatPrint and an
-external memory profiler (SURVEY.md §5). Here: cumulative per-phase
-wall-clock stats collectable from any timed() block, a context manager
+external memory profiler (SURVEY.md §5). Here: named spans of the
+program's phases on torch.profiler's own timeline, a context manager
 around torch.profiler for full traces of the host and the card, and the
 synchronized stage timer of the engine's factor rounds.
 
-The port of the JAX package's ``utils/profiling.py``: ``PhaseStats`` and
-``GLOBAL_STATS`` are copies; ``torch_trace`` takes the place of
-``jax_trace``. ``StageTimer`` / ``STAGES`` take the place of the JAX
-side's profiling scripts (``scripts/profile_factor.py``,
+The port of the JAX package's ``utils/profiling.py``: ``torch_trace``
+takes the place of ``jax_trace``. ``StageTimer`` / ``STAGES`` take the
+place of the JAX side's profiling scripts (``scripts/profile_factor.py``,
 ``scripts/profile_f64_rounds.py``), which re-walk the rounds by hand: the
 engine enters the timer's scopes on its own round loop
 (``solver/mf_torch.py``), and ``drivers/profile.py`` reads them.
+
+``span(name)`` is the one span primitive: the facade, the refiner, the
+engine's solve rounds, the stage timer's scopes and ``utils.logging.timed``
+open it. While no torch profiler records it is one check and a shared
+no-op context; while one records it is a host range ``nk.<name>`` in the
+profiler's trace, on the clock of the card's kernels there, so each idle
+stretch of the card can be put down to the program's phase on the host.
+A span never synchronizes.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import time
 from collections import defaultdict
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+PREFIX = "nk."
 
 
-class PhaseStats:
-    """Cumulative named-phase timing; thread-unsafe by design (host driver)."""
+def span(name: str, **args):
+    """The range ``nk.<name>`` while a torch profiler records (its
+    ``args``, a round number say, go into the range's arguments, which the
+    profiler keeps when it records shapes); otherwise the shared no-op.
 
-    def __init__(self):
-        self.seconds = defaultdict(float)
-        self.calls = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds[name] += time.perf_counter() - t0
-            self.calls[name] += 1
-
-    def report(self) -> str:
-        rows = sorted(self.seconds.items(), key=lambda kv: -kv[1])
-        return "\n".join(f"{name:32s} {sec:9.3f}s  x{self.calls[name]}"
-                         for name, sec in rows)
-
-    def to_json(self) -> str:
-        return json.dumps({k: round(v, 4) for k, v in self.seconds.items()})
-
-
-GLOBAL_STATS = PhaseStats()
+    The range is an operator-scope record function, as torch's own
+    operators are, not a user annotation (``torch.profiler.record_function``):
+    the profiler mirrors each user annotation onto the device's timeline
+    over the kernels launched inside it, where a reader of device busy time
+    would count it as work."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SCOPE
+    return _RecordFunctionFast(PREFIX + name, (), args)
 
 
 class StageTimer:
@@ -59,8 +55,8 @@ class StageTimer:
     inside them (assembly, extend-add, panel, TRSM, ...), as the engine
     enters ``round(rnd, plan)`` and ``stage(name)`` scopes.
 
-    Inactive by default: a scope then costs one check and is a shared
-    no-op context (no synchronize, no launch). Inside ``recording(device)``
+    Inactive by default: a scope is then only its ``span`` (no
+    synchronize, no launch). Inside ``recording(device)``
     each scope synchronizes ``device`` on entry and exit, so a scope's time
     is the device work it enqueued plus its host work, and the timer
     records, per round (``rounds``: the plan's B, P, N and child-group
@@ -72,7 +68,9 @@ class StageTimer:
     every stage. Stages sit in module-level functions
     (``mf_torch.partial_factor``, ``pack_diag_inv``) as well as in the
     engine, so the process holds one timer, ``STAGES``: under a mesh each
-    rank's process times its own rounds."""
+    rank's process times its own rounds. Every scope opens a ``span``
+    (``nk.round``, its round number in the range's arguments, and
+    ``nk.stage.<name>``), active or not."""
 
     def __init__(self):
         self.active = False
@@ -113,13 +111,13 @@ class StageTimer:
         """The scope of round ``rnd`` (its ``plan`` gives B, P, N and the
         child groups)."""
         if not self.active:
-            return _NO_SCOPE
+            return span("round", round=rnd)
         return self._round(rnd, plan)
 
     def stage(self, name: str):
         """The scope of one stage (nested stages count apart)."""
         if not self.active:
-            return _NO_SCOPE
+            return span("stage." + name)
         return self._stage(name)
 
     @contextlib.contextmanager
@@ -131,7 +129,8 @@ class StageTimer:
         self._row = row
         t0 = time.perf_counter()
         try:
-            yield
+            with span("round", round=rnd):
+                yield
         finally:
             self._sync()
             row["ms"] = (time.perf_counter() - t0) * 1e3
@@ -145,7 +144,8 @@ class StageTimer:
         self._stack.append(nested)
         t0 = time.perf_counter()
         try:
-            yield
+            with span("stage." + name):
+                yield
         finally:
             self._sync()
             dt = (time.perf_counter() - t0) * 1e3

@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""Where the card waits in a benchmark cell's requests, by the program's
+spans (``utils/profiling.py::span``).
+
+Builds the cell's configuration as ``benchmark/run.py`` does (its matrix,
+one factor of the configuration's own values; the mix must not refactor)
+and, for each seed, runs the mix's warm-up requests, then its traced
+requests under the harness's profiler (``benchmark/trace.py::traced``,
+each request in a ``bench.solve`` range as there). The stretch is read
+twice: by the harness (``summarize``: busy and window seconds, the idle
+gaps by the innermost host event) and by ``drivers/profile.py``'s
+arithmetic: every idle gap put down to the innermost ``nk.*`` span
+(``idle_under``) and each span's host seconds and count, per request.
+
+With ``--cost N``: N requests with every span on and N with every span
+the no-op, alternated one by one, first under one profiler, then without
+one; the median latency of each side and the median of the pairs'
+differences.
+
+    python3 scripts/torch_apply_spans.py --workload gx3deep_centered.apply
+        --seeds 11,12,13 [--cost 200] [--device cuda] [--out FILE.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from benchmark import run as bench  # noqa: E402
+
+
+@contextlib.contextmanager
+def spans_off():
+    """Every span of the program the shared no-op for the block."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
+        mf, mf_torch, refine)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.utils import (
+        logging, profiling)
+    mods = (mf, mf_torch, refine, logging, profiling)
+    saved = [m.span for m in mods]
+
+    def off(name, **args):
+        return profiling._NO_SCOPE
+    for m in mods:
+        m.span = off
+    try:
+        yield
+    finally:
+        for m, s in zip(mods, saved):
+            m.span = s
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="torch_apply_spans",
+                                description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", default="gx3deep_centered.apply")
+    p.add_argument("--seeds", required=True,
+                   help="comma-separated seeds of the right-hand sides")
+    p.add_argument("--cost", type=int, default=0, metavar="N")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    bench.use_checkout_caches()
+    import torch
+
+    from benchmark import trace as tr
+    from benchmark.reference import check
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.device import (
+        resolve_device)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import profile
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
+        IndexMaps)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        SparseMatrix)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
+        MultifrontalFactorization)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.symbolic import (
+        symbolic_from_matrix)
+    torch.set_num_threads(bench.HOST_THREADS)
+
+    spec = bench.load_json(ROOT / "BENCHMARK.json")
+    cell = bench.find(spec["workloads"], args.workload, "workload")
+    config = bench.load_json(ROOT / bench.find(
+        spec["configs"], cell["config"], "config")["file"])
+    traffic = bench.load_json(ROOT / "benchmark" / "traffic"
+                              / f"{cell['traffic']}.json")
+    if traffic["refactor_every_step"] or traffic["value_perturbation"]:
+        raise SystemExit("torch_apply_spans: the mix refactors; it reads "
+                         "requests on one factor")
+    dev = resolve_device(args.device)
+    cuda = dev.type == "cuda"
+    prob = bench.problem(cell["config"], config)
+    n = int(prob["tracer_state_len"])
+    maps = IndexMaps(tracer_state_len=n, int3_to_ind=prob["int3_to_ind"],
+                     ind_to_i=prob["ind_to_i"], ind_to_j=prob["ind_to_j"],
+                     ind_to_k=prob["ind_to_k"])
+    matrix = SparseMatrix(nzval=prob["nzval"], colind=prob["colind"],
+                          rowptr=prob["rowptr"],
+                          coupled_tracer_cnt=config["coupled_tracer_cnt"])
+    sym = symbolic_from_matrix(maps, matrix, leaf_size=config["leaf_size"])
+    fac = MultifrontalFactorization(
+        matrix, sym=sym, refine_tol=config["refine_tol"], device=dev,
+        precision=config["factor_precision"])
+    nrhs = traffic["rhs_per_step"]
+    k = traffic["traced_steps"]
+    card = bench.power_limit() if cuda else "cpu"
+    log = lambda s: print(s, file=sys.stderr, flush=True)  # noqa: E731
+
+    def request(seed: int, index: int) -> float:
+        B = check.step_rhs(n, seed, index, nrhs)
+        with torch.profiler.record_function("bench.solve"):
+            t0 = time.perf_counter()
+            fac.solve(B)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            return time.perf_counter() - t0
+
+    out = dict(workload=args.workload, card=card, traced_requests=k,
+               seeds={})
+    for seed in (int(s) for s in args.seeds.split(",")):
+        for i in range(traffic["warmup_steps"]):
+            request(seed, i + 1)
+        with tr.traced(dev) as held:
+            lat = [request(seed, 100 + i) for i in range(k)]
+        prof = held.pop("prof")
+        harness = tr.summarize(prof) if cuda else None
+        host, devs = profile.timeline(prof.profiler.kineto_results.events())
+        w0, w1 = next((a, b) for a, b, name in host if name == tr.STRETCH)
+        busy, gaps = profile.device_gaps(devs, w0, w1)
+        under = profile.idle_under(host, gaps)
+        idle = (w1 - w0) - busy
+        row = dict(
+            window_s=w1 - w0, busy_s=busy, idle_s=idle,
+            idle_share=idle / (w1 - w0),
+            explained=(1.0 - under.get(profile.NO_SPAN, 0.0) / idle
+                       if idle > 0 else None),
+            latency_ms=[1e3 * x for x in lat],
+            idle_under_ms={name: 1e3 * s / k for name, s in sorted(
+                under.items(), key=lambda kv: -kv[1])},
+            spans_ms={name: [1e3 * s / k, c / k] for name, (s, c) in sorted(
+                profile.span_totals(host, w0, w1).items(),
+                key=lambda kv: -kv[1][0])},
+            refiner={key: fac._refiner.stats[key] for key in (
+                "host_applies", "cycles", "outers", "extended")},
+            harness=harness)
+        del prof, held
+        out["seeds"][seed] = row
+        log(f"# seed {seed}: window {row['window_s']:.4f} s, busy "
+            f"{busy:.4f} s, idle {100 * row['idle_share']:.2f}%, put down "
+            f"to a span {100 * (row['explained'] or 0):.2f}% [{card}]")
+        for name in {**row["idle_under_ms"], **row["spans_ms"]}:
+            ms = row["idle_under_ms"].get(name, 0.0)
+            span_ms = row["spans_ms"].get(name, [0.0, 0])
+            log(f"#   {name:34s} idle {ms:9.3f} ms/request; span "
+                f"{span_ms[0]:9.3f} ms x {span_ms[1]:g}")
+        if harness is not None:
+            log("#   harness idle_gaps: " + ", ".join(
+                f"{name} {s:.4f}" for name, s in harness["idle_gaps"]))
+    if args.cost:
+        seed = int(args.seeds.split(",")[0])
+        for traced in (True, False):
+            on, off = [], []
+            with (tr.traced(dev) if traced else contextlib.nullcontext()):
+                for i in range(args.cost):
+                    # one request each side, each first in every other pair
+                    for side in ((on, off) if i % 2 == 0 else (off, on)):
+                        with (spans_off() if side is off
+                              else contextlib.nullcontext()):
+                            side.append(request(seed, 200 + i))
+            m_on, m_off = statistics.median(on), statistics.median(off)
+            diff = statistics.median(a - b for a, b in zip(on, off))
+            key = "cost_traced" if traced else "cost_untraced"
+            out[key] = dict(requests=len(on), median_on_ms=1e3 * m_on,
+                            median_off_ms=1e3 * m_off,
+                            median_pair_diff_ms=1e3 * diff,
+                            share=diff / m_off)
+            log(f"# {key}: median {1e3 * m_on:.3f} ms with spans, "
+                f"{1e3 * m_off:.3f} ms without; median pair difference "
+                f"{1e3 * diff:+.3f} ms ({100 * diff / m_off:+.2f}%), "
+                f"{len(on)} requests each [{card}]")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1, default=float))
+    print(json.dumps({key: v for key, v in out.items() if key != "seeds"},
+                     default=float))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -348,24 +348,6 @@ def test_ncdiff_exit_codes_equal(inputs, tmp_path, capsys):
     assert ncdiff.main(["-q", "-v", "IAGE_CUR", tracer, changed]) == 1
 
 
-def test_phase_stats_report_equal():
-    """PhaseStats counts, reports and serializes as the JAX package's."""
-    from nk_ocn_tracer_jacobian_precond_tpu.utils import profiling as ref_prof
-    from nk_ocn_tracer_jacobian_precond_tpu_torch.utils import profiling
-    st, ref = profiling.PhaseStats(), ref_prof.PhaseStats()
-    for name in ("a", "b", "a"):
-        with st.phase(name):
-            pass
-        with ref.phase(name):
-            pass
-    for s in (st, ref):
-        s.seconds.update(a=1.25, b=0.5)
-    assert st.report() == ref.report()
-    assert st.to_json() == ref.to_json()
-    assert dict(st.calls) == dict(ref.calls) == {"a": 2, "b": 1}
-    assert isinstance(profiling.GLOBAL_STATS, profiling.PhaseStats)
-
-
 def test_torch_trace_writes_a_trace(tmp_path):
     """torch_trace on the CPU (named) writes one Chrome trace holding the
     block's operators, also when the block raises."""
