@@ -55,7 +55,12 @@ its hand-written CUDA kernels on the way:
    one-time costs, peak memory and each round's peak of a steady refactor
    against memplan.engine_round_peaks; the value update on the card bit
    for bit with the host's (also at tiny size with a W > 1 fold), the
-   stencil operator's matvec against the CSR product, K1's and K3's
+   stencil operator's matvec against the CSR product, the refiner's
+   product kernel (csr_matvec) at 1 and 4 RHS bit for bit against its
+   plain version and scipy's CSR product, timed beside its bound, the
+   plain version, torch.sparse.mm and scipy, its launches on the loop's
+   4-RHS solves and on one 1-RHS solve against the refiner's count of
+   device residuals, K1's and K3's
    ms per gx3deep refactor beside their bounds (every panel shape and
    every round's fronts bit for bit against the plain versions), and the
    per-round profile of a synchronized steady refactor;
@@ -149,6 +154,7 @@ REPO = Path(__file__).resolve().parent
 PKG = "nk_ocn_tracer_jacobian_precond_tpu_torch"
 PANEL_SOURCE = f"{PKG}/csrc/pivoted_panel.cu"
 ASM_SOURCE = f"{PKG}/csrc/ell_assemble.cu"
+MATVEC_SOURCE = f"{PKG}/csrc/csr_matvec.cu"
 # def lines of pallas_pivoted_panel_df64 (K1), pallas_pivoted_panel (K2)
 # and pallas_ell_assemble (K3)
 PALLAS = "nk_ocn_tracer_jacobian_precond_tpu/solver/pallas_kernels.py"
@@ -650,6 +656,53 @@ def expect_launches(launches: dict, plans, sfxs) -> None:
             if launches[k] != (want if on else 0):
                 raise AssertionError(f"{k} launched {launches[k]} times, "
                                      f"want {want if on else 0}")
+
+
+def factor_launches(launches: dict) -> dict:
+    """The launches of the factor path's kernels: the refiner's product
+    kernel runs in the solves (counting_solves checks it)."""
+    return {k: v for k, v in launches.items() if k != "csr_matvec_f64"}
+
+
+class counting_solves:
+    """For the block, every DeviceRefiner.solve's stats, and the product
+    kernel's launches against the refiner's device residuals: ``check()``
+    raises unless each residual launched the kernel once and nothing else
+    did (a float64 Krylov cycle launches it for its products, so a solve
+    that took one fails the check). Returns the launches."""
+
+    def __init__(self, ck):
+        self.ck, self.stats = ck, []
+
+    def __enter__(self):
+        from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.refine import (
+            DeviceRefiner)
+        self._cls, self._real = DeviceRefiner, DeviceRefiner.solve
+        self._before = self.ck.LAUNCHES["csr_matvec_f64"]
+        real, stats = self._real, self.stats
+
+        def solve(ref, B):
+            X = real(ref, B)
+            stats.append(dict(ref.stats, nrhs=1 if np.ndim(B) == 1
+                              else np.shape(B)[1]))
+            return X
+        DeviceRefiner.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.solve = self._real
+        self.launches = self.ck.LAUNCHES["csr_matvec_f64"] - self._before
+
+    def check(self, what: str) -> int:
+        res = sum(st["device_residuals"] for st in self.stats)
+        phases = {p for st in self.stats for p in st["phases"]}
+        if not self.stats or res < 1 or self.launches != res \
+                or "gmres64" in phases:
+            raise AssertionError(
+                f"{what}: csr_matvec launched {self.launches} times over "
+                f"{len(self.stats)} refined solves with {res} device "
+                f"residuals (phases {sorted(phases)})")
+        return self.launches
 
 
 def max_rel(A, X, B) -> float:
@@ -1288,8 +1341,9 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
     reset_counts(ck, device)
     mf.MultifrontalFactorization.refactor = counted
     try:
-        res = nk_loop.run_nk_loop(matrix, maps, circ, B, NK_ITERATIONS,
-                                  device=device)
+        with counting_solves(ck) as solves4:
+            res = nk_loop.run_nk_loop(matrix, maps, circ, B, NK_ITERATIONS,
+                                      device=device)
     finally:
         mf.MultifrontalFactorization.refactor = real_refactor
     launches = dict(ck.LAUNCHES)
@@ -1304,12 +1358,27 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
             expect_launches(got, plans, ("f64",))
         except AssertionError as e:
             raise AssertionError(f"NK iteration {it}: {e}") from None
-    per_factor = {k: v // (NK_ITERATIONS + 1) for k, v in launches.items()}
+    factor = factor_launches(launches)
+    per_factor = {k: v // (NK_ITERATIONS + 1) for k, v in factor.items()}
     expect_launches(per_factor, plans, ("f64",))
-    if any(v % (NK_ITERATIONS + 1) for v in launches.values()):
+    if any(v % (NK_ITERATIONS + 1) for v in factor.values()):
         raise AssertionError(f"launches {launches} are not one cold factor "
                              f"and {NK_ITERATIONS} refactors")
     fac.validate()
+    # the product kernel on the main path: the loop's 4-RHS solves, then
+    # one 1-RHS solve of the last factor, as the apply cell's requests
+    with counting_solves(ck) as solves1:
+        fac.solve(B[:, 0])
+    matvec_launches = {4: solves4.check("phase 8 NK loop"),
+                       1: solves1.check("phase 8 1-RHS solve")}
+    if {st["nrhs"] for st in solves4.stats} != {4} \
+            or solves1.stats[-1]["best_rel"] > 1e-10:
+        raise AssertionError(f"phase 8 solves: {solves4.stats} "
+                             f"{solves1.stats}")
+    say(f"phase 8 csr_matvec launches: {matvec_launches[4]} over the "
+        f"loop's {len(solves4.stats)} 4-RHS refined solves, "
+        f"{matvec_launches[1]} over one 1-RHS solve, each the refiner's "
+        f"device residuals")
     for r in res.rows:
         split = r["refactor_split"]
         lk = per_refactor[r["it"] - 1]
@@ -1372,6 +1441,8 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
     del op
     say(f"phase 8 stencil matvec gx3deep: max |y - A x| {err:.3e} (max |y| "
         f"{scale:.3e}), within rtol 1e-12, atol 1e-13 max|y|")
+    csr_mv = phase_csr_matvec(ck, device, matrix, card)
+    csr_mv["launches"] = matvec_launches
 
     # each round's peak of a steady refactor against the engine's plan
     planned = engine_round_peaks(plans, 8, fac._fac_matrix.nnz,
@@ -1396,7 +1467,8 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         launches=launches, peak_mem_gb=peak / gb,
         round_peak_over_plan_max=max(over),
         round_peak_gb_max=max(peaks) / gb, kernels_per_refactor=kern,
-        breakdown=breakdown, summary=nk_loop.summary(res, 4, "gx3deep"))
+        breakdown=breakdown, summary=nk_loop.summary(res, 4, "gx3deep"),
+        csr_matvec=csr_mv)
     say(f"phase 8 gx3deep rounds (B, P, N): {rounds}")
     say(f"phase 8 one-time: gen_A {t_gen:.2f} s, symbolic "
         f"{res.symbolic_s:.2f} s, update plan {res.update_plan_s:.2f} s, "
@@ -1414,6 +1486,77 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         f"{kern['K3']['bound_ms']:.4f} ms) [{card}]")
     say("phase 8 NK loop gx3deep f64: " + json.dumps(stats, default=float))
     return stats, res.asm
+
+
+def phase_csr_matvec(ck, device, matrix, card: str) -> dict:
+    """The refiner's product kernel (csr_matvec) on its own ELL copy of
+    ``matrix`` at 1 and 4 right-hand sides: bit for bit against its plain
+    version on the card and against scipy's A @ X on the host, and b minus
+    it against scipy's B - A @ X; timed (CUDA events) beside its bound,
+    the plain version, the same product through torch.sparse.mm on a CSR
+    tensor (a yardstick: the port never calls it) and scipy on the host,
+    and the refiner's residual (b minus it) beside it."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.refine import (
+        DeviceRefiner)
+    ref = DeviceRefiner.__new__(DeviceRefiner)
+    ref.n, ref._rowptr, ref.device = (matrix.flat_len,
+                                      np.asarray(matrix.rowptr), device)
+    ref._bind_matrix(matrix)
+    col, val = ref._ell_col, ref._ell_val64
+    n, E = col.shape
+    A = ref.A.tocsr()
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)),
+        torch.from_numpy(A.data), size=A.shape).to(device)
+    rows = {}
+    for nrhs in (1, 4):
+        rng = np.random.default_rng(nrhs)
+        X = rng.standard_normal((n, nrhs)) * np.exp(
+            rng.uniform(-8, 8, (n, 1)))
+        B = rng.standard_normal((n, nrhs))
+        Xd, Bd = (torch.from_numpy(a).to(device) for a in (X, B))
+        before = ck.LAUNCHES["csr_matvec_f64"]
+        got = ck.csr_matvec(col, val, Xd)
+        plain = ck.csr_matvec_plain(col, val, Xd)
+        r = ref._residual64(Bd, Xd, dict(device_residuals=0))
+        sync(device)
+        if ck.LAUNCHES["csr_matvec_f64"] != before + 2:
+            raise AssertionError("csr_matvec launched no kernel")
+        if not torch.equal(got, plain):
+            raise AssertionError(f"csr_matvec (nrhs {nrhs}) differs from "
+                                 f"its plain version")
+        AX = A @ X
+        host = got.cpu().numpy()
+        scipy_bitwise = bool(np.array_equal(host, AX)
+                             and np.array_equal(r.cpu().numpy(), B - AX))
+        scale = np.abs(A) @ np.abs(X)
+        # the least traffic: values and int32 column indices of the
+        # nonzeros, the row pointers, x gathered once and y written
+        nbytes = matrix.nnz * 12 + (n + 1) * 4 + 2 * n * nrhs * 8
+        rows[nrhs] = dict(
+            ms=event_ms(lambda: ck.csr_matvec(col, val, Xd), 200),
+            bound_ms=nbytes / HBM_BPS * 1e3,
+            ell_stored_ms=n * E * 16 / HBM_BPS * 1e3,
+            residual_ms=event_ms(lambda: ref._residual64(
+                Bd, Xd, dict(device_residuals=0)), 200),
+            plain_ms=event_ms(lambda: ck.csr_matvec_plain(col, val, Xd), 5),
+            library_ms=event_ms(lambda: torch.sparse.mm(csr, Xd), 200),
+            scipy_host_ms=median_ms(lambda: A @ X, torch.device("cpu"), 5),
+            scipy_bitwise=scipy_bitwise,
+            max_err_over_scale=float((np.abs(host - AX) / scale).max()))
+        m = rows[nrhs]
+        say(f"phase 8 csr_matvec gx3deep (n {n}, E {E}, nnz {matrix.nnz}, "
+            f"nrhs {nrhs}): kernel {m['ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms (stored ELL {m['ell_stored_ms']:.4f}),"
+            f" residual {m['residual_ms']:.4f} ms, plain "
+            f"{m['plain_ms']:.3f} ms, torch.sparse.mm "
+            f"{m['library_ms']:.4f} ms, scipy on the host "
+            f"{m['scipy_host_ms']:.3f} ms; bit for bit with the plain "
+            f"version, with scipy {scipy_bitwise} (max |y - y_scipy| / "
+            f"|A||x| {m['max_err_over_scale']:.3e}) [{card}]")
+    return dict(n=n, E=E, nnz=matrix.nnz, rows=rows)
 
 
 # --------------------------------------------------------------------------
@@ -1436,10 +1579,11 @@ def phase_bench(ck, device, work: Path, card: str) -> dict:
     out = io.StringIO()
     reset_counts(ck, device)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), counting_solves(ck) as solves:
         rc = bench.main(["--size", BENCH_SIZE, "--prec", "f64", "--cache",
                          str(cache)])
     t_phase = time.perf_counter() - t0
+    matvec_launches = solves.check("phase 9 bench")
     launches = dict(ck.LAUNCHES)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     if rc != 0:
@@ -1458,9 +1602,10 @@ def phase_bench(ck, device, work: Path, card: str) -> dict:
                                             str(cache))
     plans = build_plan(symbolic_from_matrix(maps, matrix, leaf_size=16),
                        matrix, batch_multiple=1)
-    if any(v % 2 for v in launches.values()):
-        raise AssertionError(f"launches {launches} are not two factors")
-    expect_launches({k: v // 2 for k, v in launches.items()}, plans,
+    factor = factor_launches(launches)
+    if any(v % 2 for v in factor.values()):
+        raise AssertionError(f"launches {factor} are not two factors")
+    expect_launches({k: v // 2 for k, v in factor.items()}, plans,
                     ("f64",))
     # K1 and K3 (f64) at this path's own shapes (leaf 16), bit for bit
     # with their plain versions, timed per bench factor
@@ -1484,7 +1629,9 @@ def phase_bench(ck, device, work: Path, card: str) -> dict:
         f"{line['baseline_residual']:.3e} on {line['baseline_host']}; "
         f"vs_baseline {line['vs_baseline']:.2f}; launches K1 "
         f"{launches['pivoted_panel_f64']}, K3 "
-        f"{launches['ell_assemble_f64']} over 2 factors [{card}]")
+        f"{launches['ell_assemble_f64']} over 2 factors, csr_matvec "
+        f"{matvec_launches} over {len(solves.stats)} refined solves "
+        f"[{card}]")
     say("phase 9 bench line: " + json.dumps(line))
     return dict(line=line, launches=launches, phase_s=t_phase,
                 kernels_per_factor=kern)
@@ -2511,6 +2658,18 @@ def main() -> int:
         bound_by="bytes", **{k: k3m[k] for k in ("ms", "plain_ms",
                                                  "library_ms", "bound_ms")}))
     kernels += phase12_kernel_rows(up, coupled, nk32)
+    # the refiner's product, which replaces no Pallas kernel; its launches
+    # are phase 8's on the main path at that width
+    cmv = deep_stats["csr_matvec"]
+    for nrhs, r in cmv["rows"].items():
+        kernels.append(dict(
+            name="csr_matvec_f64", route="cuda", source=MATVEC_SOURCE,
+            replaces=None, path=f"gx3deep refiner product, {nrhs} RHS",
+            launches=cmv["launches"][nrhs], max_abs_err=0.0,
+            bound_by="bytes",
+            **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                 "bound_ms", "residual_ms",
+                                 "scipy_bitwise")}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

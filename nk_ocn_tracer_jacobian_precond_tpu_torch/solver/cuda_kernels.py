@@ -14,9 +14,17 @@ JAX package (``solver/pallas_kernels.py``), each at the factor dtype:
   ``pallas_ell_assemble`` and the rest of ``mf_jax._assemble``: front
   assembly with its spill entries and identity padding (K3, both dtypes).
 
+A fourth carries the solve's refinement and replaces no Pallas kernel (the
+JAX refiner takes its residuals on the host):
+
+* ``csr_matvec`` (``csrc/csr_matvec.cu``): the refiner's float64 product
+  A x from its ELL copy of the matrix, summed in CSR order as scipy's CSR
+  product sums it, so b minus it is scipy's ``B - A @ X``.
+
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Both dispatch on the dtype
-(float32 or float64; any other raises). The kernels are compiled with
+(float32 or float64; any other raises), but ``csr_matvec``, which takes
+float64 only. The kernels are compiled with
 ``nvcc`` into ``build/torch_kernels/<hash of the sources>/`` at the first
 launch (or by ``build()``) and bound with ctypes. Nothing here imports or
 compiles CUDA code when the module is imported. ``LAUNCHES`` counts the
@@ -37,7 +45,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("pivoted_panel.cu", "ell_assemble.cu")
+SOURCES = ("pivoted_panel.cu", "ell_assemble.cu", "csr_matvec.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # --fmad=false: the kernels fuse a multiply-add only where the source calls
 # fma(), as their plain versions do, so the two agree bit for bit.
@@ -46,7 +54,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-Xptxas", "-v")
 
 LAUNCHES = {"pivoted_panel_f64": 0, "pivoted_panel_f32": 0,
-            "ell_assemble_f64": 0, "ell_assemble_f32": 0}
+            "ell_assemble_f64": 0, "ell_assemble_f32": 0,
+            "csr_matvec_f64": 0}
 SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 BUILD_LOG = ""          # ptxas' register / shared-memory report of the build
 
@@ -103,6 +112,8 @@ def build() -> ctypes.CDLL:
             fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                            _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_int,
                            _VP]
+        lib.nk_csr_matvec_f64.restype = ctypes.c_int
+        lib.nk_csr_matvec_f64.argtypes = [_VP] * 4 + [_I64] * 3 + [_VP]
         _lib = lib
         return lib
 
@@ -459,3 +470,50 @@ def ell_assemble(nzval_ext, a_col, a_csrc, a_pos, a_src, p_arr,
                            f"error {err}")
     LAUNCHES[f"ell_assemble_{sfx}"] += 1
     return F
+
+
+# --------------------------------------------------------------------------
+# the refiner's float64 product
+# --------------------------------------------------------------------------
+
+def csr_matvec_plain(col, val, x):
+    """A x in PyTorch for the ELL operands col / val (n, E), pads (column
+    n) after each row's entries: each row's products summed in ELL order
+    from zero, as scipy's CSR product sums them. A pad adds nothing, not
+    even a zero's sign."""
+    n, E = col.shape
+    xp = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    acc = x.new_zeros((n, x.shape[1]))
+    for k in range(E):
+        ck = col[:, k]
+        acc = torch.where((ck < n)[:, None],
+                          acc + val[:, k, None] * xp[ck], acc)
+    return acc
+
+
+def csr_matvec(col, val, x) -> torch.Tensor:
+    """y = A x, float64, for x (n, nrhs) contiguous and the ELL operands
+    col (n, E) int64 (pads = n after each row's entries) and val (n, E)
+    float64. CPU tensors take the plain version; CUDA tensors launch
+    csrc/csr_matvec.cu. Both give scipy's CSR product's bits."""
+    if col.dim() != 2 or x.dim() != 2:
+        raise ValueError(f"col must be (n, E) and x (n, nrhs), got "
+                         f"{tuple(col.shape)} and {tuple(x.shape)}")
+    n, E = col.shape
+    nrhs = x.shape[1]
+    _check(col, "col", torch.int64, (n, E))
+    _check(val, "val", torch.float64, (n, E))
+    _check(x, "x", torch.float64, (n, nrhs))
+    if _route(col, val, x) == "cpu":
+        return csr_matvec_plain(col, val, x)
+    lib = build()
+    y = torch.empty_like(x)
+    err = lib.nk_csr_matvec_f64(y.data_ptr(), x.data_ptr(), col.data_ptr(),
+                                val.data_ptr(), n, E, nrhs,
+                                _stream(x.device))
+    if err:
+        raise RuntimeError(f"csr_matvec_f64 kernel launch failed (n={n}, "
+                           f"E={E}, nrhs={nrhs}): CUDA error {err}")
+    LAUNCHES["csr_matvec_f64"] += 1
+    return y
+

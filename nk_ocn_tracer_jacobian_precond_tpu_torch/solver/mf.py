@@ -17,8 +17,9 @@ reference's solve_ABdist), the torch engine shards the factorization over
 the ranks of a torch.distributed mesh (mf_torch's module docstring). Every
 rank builds the facade with the same arguments and calls it in step: its
 refinement and escalation decisions are taken on values that every rank
-holds equal (the gathered solves, the host residuals), so the ranks take
-the same branches and meet at the same collectives.
+holds equal (the gathered solves, and the residuals of them, which every
+rank's refiner sums in one fixed order), so the ranks take the same
+branches and meet at the same collectives.
 """
 
 from __future__ import annotations
@@ -384,19 +385,21 @@ class MultifrontalFactorization:
         return X[:, 0] if single else X
 
     def _device_refined_solve(self, B: np.ndarray) -> np.ndarray:
-        """The device refiner's solve, checked on the host; escalated to
-        float64 factors when float32 ones leave it short of the target."""
-        X = self._device_refiner().solve(B)
-        with span("mf.check"):
-            rel = _rel_residuals(self.A, X, B)
-        if (rel.max() > 100 * self.refine_tol
-                and self._maybe_escalate_precision(rel.max())):
-            X = self._device_refiner().solve(B)
-            with span("mf.check"):
-                rel = _rel_residuals(self.A, X, B)
-        if rel.max() > 100 * self.refine_tol:
+        """The device refiner's solve, judged by the relative residuals the
+        refiner took of the iterate it returns (float64, or long double
+        where it took that pass); escalated to float64 factors when float32
+        ones leave it short of the target."""
+        refiner = self._device_refiner()
+        X = refiner.solve(B)
+        rel = float(np.max(refiner.stats["best_rels"]))
+        if (rel > 100 * self.refine_tol
+                and self._maybe_escalate_precision(rel)):
+            refiner = self._device_refiner()
+            X = refiner.solve(B)
+            rel = float(np.max(refiner.stats["best_rels"]))
+        if rel > 100 * self.refine_tol:
             warnings.warn(f"device GMRES-IR stalled at max relative "
-                          f"residual {rel.max():.3e}", RuntimeWarning,
+                          f"residual {rel:.3e}", RuntimeWarning,
                           stacklevel=3)
         return X
 

@@ -2,10 +2,13 @@
 torch device.
 
 The port of the JAX package's ``solver/refine.py::DeviceRefiner``. The
-outer loop runs on the host with exact float64 residuals (scipy SpMV); the
-corrections run on the engine's device, batched over all right-hand sides:
+outer loop is driven from the host, and its iterate stays on the engine's
+device from the first correction to the return: each outer step takes the
+float64 residual there (b minus ``cuda_kernels.csr_matvec``, scipy's
+B - A @ X bit for bit, where the JAX refiner calls scipy on the host) and reads back one relative norm per right-hand side. The
+corrections run on the same device, batched over all right-hand sides:
 
-* **ir**: plain refinement, x += M^-1 r of the host residual (the
+* **ir**: plain refinement, x += M^-1 r of the float64 residual (the
   reference's pdgsrfs), tried first;
 * **gmres**: up to ``MAX_CYCLES`` restarted FGMRES cycles with float32
   Krylov vectors and the multifrontal solve as the preconditioner, its
@@ -13,8 +16,8 @@ corrections run on the engine's device, batched over all right-hand sides:
   re-application of M^-1), Givens-QR least squares, and a float64
   device-side outer residual between cycles; the loop reads one number,
   the relative residual, back to the host per cycle;
-* **polish**: single cycles fed the host-exact residual, when the iterate
-  is within sight of the target;
+* **polish**: single cycles fed the outer loop's residual, when the
+  iterate is within sight of the target;
 * **gmres64**: the same cycles with float64 Krylov vectors, when float32
   cycles stall far from the target at full depth (m: ``M_START`` doubling
   to ``M_MAX`` first).
@@ -32,7 +35,8 @@ ends the refinement at once: no Krylov tier repairs an O(1)-wrong float32
 factorization, and the facade's escalation to float64 factors is the
 repair. Depth, and the Krylov phase once plain refinement has stalled
 far from the target, are memoized across solves of one factorization.
-The refiner never returns an iterate worse than the best host-checked one.
+The refiner never returns an iterate worse than the best checked one, and
+reports the relative residual of each of its columns.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 
 from ..utils import dbg, timed
 from ..utils.profiling import span
+from .cuda_kernels import csr_matvec
 
 # FGMRES inner depth: the first cycles use M_START vectors, doubled up to
 # M_MAX when a cycle gains under ~1.5 digits; a fused dispatch runs up to
@@ -94,11 +99,13 @@ class DeviceRefiner:
     on ``engine.device`` (a mf_torch.TorchMultifrontal of either factor
     dtype). ``matrix`` is the unscaled system, ``dr``/``dc`` the
     equilibration the engine's factors were built with. ``stats`` reports
-    the last solve: phases taken, plain-IR applies to the host residual
-    ("host_applies"), device cycles, outer iterations, final depth, the max relative residual of
-    every host-checked iterate ("rels") and of the one returned
-    ("best_rel"), and the host residuals in extended precision
-    ("extended")."""
+    the last solve: phases taken, plain-IR applies ("host_applies"), device
+    cycles, outer iterations, final depth, the max relative residual of
+    every checked iterate ("rels") and of the one returned ("best_rel"),
+    the relative residual of each column of the one returned
+    ("best_rels", a list), the float64 residuals taken by
+    csr_matvec on the device ("device_residuals") and the host residuals
+    in extended precision ("extended")."""
 
     def __init__(self, engine, matrix, dr=None, dc=None,
                  tol: float = 1e-12, giveup: float = 0.25):
@@ -152,36 +159,50 @@ class DeviceRefiner:
                              "pattern (new pattern => new DeviceRefiner)")
         self._bind_matrix(matrix, dr, dc)
 
-    def _host_residual(self, B: np.ndarray, X: np.ndarray,
-                       extended: bool) -> np.ndarray:
-        """B - A X on the host, in float64 or (``extended``) accumulated in
-        long double and rounded to float64 once."""
-        if not extended:
-            return B - self.A @ X
+    def _host_residual(self, B: np.ndarray, X: np.ndarray) -> np.ndarray:
+        """B - A X on the host, accumulated in long double and rounded to
+        float64 once."""
         if self._A_ext is None:
             self._A_ext = self.A.astype(np.longdouble)
         R = B.astype(np.longdouble) - self._A_ext @ X.astype(np.longdouble)
         return R.astype(np.float64)
 
-    def _residual(self, B: np.ndarray, X: np.ndarray, bnorm: np.ndarray,
+    def _residual64(self, b: torch.Tensor, X: torch.Tensor,
+                    stats: dict) -> torch.Tensor:
+        """b - A X in float64 on the device, the product first
+        (csr_matvec), then one subtraction, as scipy's B - A @ X;
+        ``stats`` counts it."""
+        stats["device_residuals"] += 1
+        return b - csr_matvec(self._ell_col, self._ell_val64, X)
+
+    def _residual(self, B: np.ndarray, Bd: torch.Tensor, Xd, bnorm,
                   extended: bool, stats: dict):
-        """The host residual of X (B itself while X is zero) and its max
-        relative norm, in a span; ``stats`` counts the extended ones."""
+        """The residual of the device iterate Xd (Bd itself while Xd is
+        None, the zero iterate) on the device, and the relative norm of
+        each column, read back; in a span. Float64 residuals come from
+        _residual64; ``extended`` ones from the host's long-double
+        product, put back on the device, and ``stats`` counts those."""
         with span("refine.host_residual_ext" if extended
-                  else "refine.host_residual"):
-            R = self._host_residual(B, X, extended) if X.any() else B
-            rel = float((np.linalg.norm(R, axis=0) / bnorm).max())
-        stats["extended"] += extended
-        return R, rel
+                  else "refine.residual"):
+            if Xd is None:
+                R = Bd
+            elif extended:
+                R = self._put(self._host_residual(B, Xd.cpu().numpy()))
+                stats["extended"] += 1
+            else:
+                R = self._residual64(Bd, Xd, stats)
+            rels = (torch.linalg.vector_norm(R, dim=0) / bnorm).cpu().numpy()
+        return R, rels
 
     # -- device building blocks ---------------------------------------------
 
     def _spmv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x in x's precision (float64 or float32); x (n, nrhs)."""
-        vals = (self._ell_val64 if x.dtype == torch.float64
-                else self._ell_val32)
+        """y = A x in x's precision (float64 or float32); x (n, nrhs).
+        Float64 takes csr_matvec, the outer residual's product."""
+        if x.dtype == torch.float64:
+            return csr_matvec(self._ell_col, self._ell_val64, x)
         xp = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-        return (vals[:, :, None] * xp[self._ell_col]).sum(dim=1)
+        return (self._ell_val32[:, :, None] * xp[self._ell_col]).sum(dim=1)
 
     def _precond(self, v: torch.Tensor) -> torch.Tensor:
         """M^-1 v: scale, solve in the factor dtype, unscale; the result
@@ -191,11 +212,11 @@ class DeviceRefiner:
         W = eng.solve_workspace(torch.cat([r, r.new_zeros((1, r.shape[1]))]))
         return self._dc.to(v.dtype)[:, None] * W[:self.n].to(v.dtype)
 
-    def _correct(self, R: np.ndarray) -> np.ndarray:
-        """One plain-refinement correction M^-1 R of the host residual R
-        (n, nrhs), float64 on the host."""
+    def _correct(self, R: torch.Tensor) -> torch.Tensor:
+        """One plain-refinement correction M^-1 R of the float64 residual R
+        (n, nrhs) on the device."""
         with span("refine.correct"):
-            return self._precond(self._put(R)).cpu().numpy()
+            return self._precond(R)
 
     def _cycle(self, b: torch.Tensor, m: int, dtype: torch.dtype):
         """One restarted-FGMRES correction in ``dtype``: solve A d ~= b
@@ -227,18 +248,19 @@ class DeviceRefiner:
         return torch.einsum("inr,ir->nr", Z, y)
 
     def _fused(self, b: torch.Tensor, X: torch.Tensor, m: int,
-               dtype: torch.dtype):
-        """Up to MAX_CYCLES cycles with a float64 device residual between
-        them; exits early on reaching tol, or once a cycle contracts the
-        residual by less than 4x (after the first two). Returns (X, the
-        relative residual before the last correction, cycles run)."""
+               dtype: torch.dtype, stats: dict):
+        """Up to MAX_CYCLES cycles with the outer loop's float64 residual
+        (_residual64) between them; exits early on reaching tol, or once a
+        cycle contracts the residual by less than 4x (after the first two).
+        Returns (X, the relative residual before the last correction,
+        cycles run)."""
         bnorm = torch.linalg.vector_norm(b, dim=0)
         bnorm = torch.where(bnorm > 0, bnorm, 1.0)
         rel = prev = np.inf
         k = 0
         while (k < MAX_CYCLES and rel > self.tol
                and (rel < 0.25 * prev or k < 2)):
-            R = b - self._spmv(X)
+            R = self._residual64(b, X, stats)
             rel_now = float((torch.linalg.vector_norm(R, dim=0)
                              / bnorm).max())
             X = X + self._cycle(R.to(dtype), m, dtype).to(b.dtype)
@@ -249,34 +271,41 @@ class DeviceRefiner:
 
     def solve(self, B: np.ndarray) -> np.ndarray:
         """Solve A X = B to self.tol relative residual; B (n,) or (n, nrhs)
-        float64 on the host."""
+        float64 on the host. B goes to the device once and X comes back
+        once."""
         B = np.asarray(B, dtype=np.float64)
         single = B.ndim == 1
         if single:
             B = B[:, None]
-        X = np.zeros_like(B)
-        bnorm = np.linalg.norm(B, axis=0)
-        bnorm[bnorm == 0] = 1.0
+        Bd = self._put(B)
+        bnorm = torch.linalg.vector_norm(Bd, dim=0)
+        bnorm = torch.where(bnorm > 0, bnorm, 1.0)
+        Xd = torch.zeros_like(Bd)
+        x_zero = True       # Xd is the zero iterate: its residual is Bd
         phase = self._phase
         applied_ir = False
         prev = np.inf
         stall = 0
         fused_stalled = False
-        extended = False    # host residuals in extended precision
-        Bd = None    # device copy of the RHS, staged once
-        Xd = None    # device iterate equal to X (fused outers)
-        X_best, rel_best = X, np.inf
+        extended = False    # residuals in extended precision, on the host
+        X_best, rel_best = Xd, np.inf
+        rels_best = np.full(B.shape[1], np.inf)
         stats = dict(phases=[], host_applies=0, cycles=0, outers=0,
-                     rels=[], extended=0)
+                     rels=[], extended=0, device_residuals=0)
+
+        def residual(ext: bool):
+            return self._residual(B, Bd, None if x_zero else Xd, bnorm, ext,
+                                  stats)
         with timed("refine (gmres-ir3)"):
             for outer in range(3 * MAX_CYCLES):
-                R, rel = self._residual(B, X, bnorm, extended, stats)
+                R, rels = residual(extended)
+                rel = float(rels.max())
                 stats["outers"] = outer + 1
                 stats["rels"].append(rel)
                 dbg(1, f"refine outer {outer} ({phase}): max rel residual "
                        f"{rel:.3e}")
                 if rel < rel_best:
-                    rel_best, X_best = rel, X.copy()
+                    rel_best, rels_best, X_best = rel, rels, Xd
                 if rel <= self.tol:
                     break
                 if (applied_ir or outer >= 1) and rel > self.giveup:
@@ -286,12 +315,13 @@ class DeviceRefiner:
                            f"> {self.giveup}: abandoning refinement")
                     break
                 if phase == "ir" and applied_ir and rel > 0.1 * prev:
-                    # plain refinement stalled: host-exact polish when the
-                    # target is within sight, else fused Krylov corrections,
-                    # memoized for later solves. (The JAX refiner memoizes
-                    # "gmres" in both cases, so that every later solve of
-                    # an f64 factorization pays a fused dispatch where 3
-                    # plain steps and 1 polish cycle suffice.)
+                    # plain refinement stalled: polish on the outer
+                    # residual when the target is within sight, else fused
+                    # Krylov corrections, memoized for later solves. (The
+                    # JAX refiner memoizes "gmres" in both cases, so that
+                    # every later solve of an f64 factorization pays a
+                    # fused dispatch where 3 plain steps and 1 polish cycle
+                    # suffice.)
                     if rel <= 1e3 * self.tol:
                         phase = "polish"
                     else:
@@ -324,12 +354,13 @@ class DeviceRefiner:
                         dbg(1, "refine: converged to the attainable floor")
                         break
                     extended = True
-                    R, rel = self._residual(B, X, bnorm, True, stats)
+                    R, rels = residual(True)
+                    rel = float(rels.max())
                     stats["rels"].append(rel)
                     dbg(1, f"refine: polish stalled within 10x of tol; "
                            f"extended-precision residual {rel:.3e}")
                     if rel < rel_best:
-                        rel_best, X_best = rel, X.copy()
+                        rel_best, rels_best, X_best = rel, rels, Xd
                     if rel <= self.tol:
                         break
                 elif phase == "gmres64":
@@ -339,40 +370,38 @@ class DeviceRefiner:
                         break
                 prev = rel
                 stats["phases"].append(phase)
+                # every correction makes a new Xd: X_best stays as it was
                 if phase == "ir":
-                    X = X + self._correct(R)
+                    Xd = Xd + self._correct(R)
                     applied_ir = True
                     stats["host_applies"] += 1
-                    Xd = None
                 elif phase == "polish":
                     with span("refine.polish"):
-                        d = self._cycle(self._put(R.astype(np.float32)),
-                                        self._m, torch.float32)
-                        X = X + d.cpu().numpy().astype(np.float64)
+                        d = self._cycle(R.to(torch.float32), self._m,
+                                        torch.float32)
+                        Xd = Xd + d.to(torch.float64)
                     stats["cycles"] += 1
-                    Xd = None
                 else:
                     dtype = (torch.float32 if phase == "gmres"
                              else torch.float64)
                     m_cur = self._m if phase == "gmres" else M_MAX
                     with span("refine.fused"):
-                        if Bd is None:
-                            Bd = self._put(B)
-                        if Xd is None:
-                            Xd = (torch.zeros_like(Bd) if not X.any()
-                                  else self._put(X))
-                        Xd, rel_est, k = self._fused(Bd, Xd, m_cur, dtype)
-                        X = Xd.cpu().numpy()
+                        Xd, rel_est, k = self._fused(Bd, Xd, m_cur, dtype,
+                                                     stats)
                     fused_stalled = k < MAX_CYCLES and rel_est > self.tol
                     stats["cycles"] += k
                     dbg(1, f"refine: fused {k} x m={m_cur} cycles, device "
                            f"residual estimate {rel_est:.3e}")
+                x_zero = False
         # an exhausted outer budget leaves the last correction unchecked:
         # give it its chance, then return the best iterate seen
         if outer == 3 * MAX_CYCLES - 1:
-            R, rel = self._residual(B, X, bnorm, False, stats)
+            R, rels = residual(False)
+            rel = float(rels.max())
             if rel < rel_best:
-                rel_best, X_best = rel, X
-        stats.update(m=self._m, best_rel=rel_best)
+                rel_best, rels_best, X_best = rel, rels, Xd
+        stats.update(m=self._m, best_rel=rel_best,
+                     best_rels=[float(r) for r in rels_best])
         self.stats = stats
-        return X_best[:, 0] if single else X_best
+        X = X_best.cpu().numpy()
+        return X[:, 0] if single else X

@@ -2,11 +2,11 @@
 """Where the card waits in a benchmark cell's requests, by the program's
 spans (``utils/profiling.py::span``).
 
-Builds the cell's configuration as ``benchmark/run.py`` does (its matrix,
-one factor of the configuration's own values; the mix must not refactor)
-and, for each seed, runs the mix's warm-up requests, then its traced
-requests under the harness's profiler (``benchmark/trace.py::traced``,
-each request in a ``bench.solve`` range as there). The stretch is read
+Builds the cell's configuration as ``benchmark/run.py`` does
+(``apply_cell.py``; the mix must not refactor) and, for each seed, runs
+the mix's warm-up requests, then its traced requests under the harness's
+profiler (``benchmark/trace.py::traced``, each request in a
+``bench.solve`` range as there). The stretch is read
 twice: by the harness (``summarize``: busy and window seconds, the idle
 gaps by the innermost host event) and by ``drivers/profile.py``'s
 arithmetic: every idle gap put down to the innermost ``nk.*`` span
@@ -34,6 +34,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import apply_cell  # noqa: E402
 from benchmark import run as bench  # noqa: E402
 
 
@@ -76,39 +77,13 @@ def main(argv=None) -> int:
     from nk_ocn_tracer_jacobian_precond_tpu_torch.device import (
         resolve_device)
     from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import profile
-    from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
-        IndexMaps)
-    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
-        SparseMatrix)
-    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
-        MultifrontalFactorization)
-    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.symbolic import (
-        symbolic_from_matrix)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
+        cuda_kernels as ck)
     torch.set_num_threads(bench.HOST_THREADS)
-
-    spec = bench.load_json(ROOT / "BENCHMARK.json")
-    cell = bench.find(spec["workloads"], args.workload, "workload")
-    config = bench.load_json(ROOT / bench.find(
-        spec["configs"], cell["config"], "config")["file"])
-    traffic = bench.load_json(ROOT / "benchmark" / "traffic"
-                              / f"{cell['traffic']}.json")
-    if traffic["refactor_every_step"] or traffic["value_perturbation"]:
-        raise SystemExit("torch_apply_spans: the mix refactors; it reads "
-                         "requests on one factor")
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
-    prob = bench.problem(cell["config"], config)
-    n = int(prob["tracer_state_len"])
-    maps = IndexMaps(tracer_state_len=n, int3_to_ind=prob["int3_to_ind"],
-                     ind_to_i=prob["ind_to_i"], ind_to_j=prob["ind_to_j"],
-                     ind_to_k=prob["ind_to_k"])
-    matrix = SparseMatrix(nzval=prob["nzval"], colind=prob["colind"],
-                          rowptr=prob["rowptr"],
-                          coupled_tracer_cnt=config["coupled_tracer_cnt"])
-    sym = symbolic_from_matrix(maps, matrix, leaf_size=config["leaf_size"])
-    fac = MultifrontalFactorization(
-        matrix, sym=sym, refine_tol=config["refine_tol"], device=dev,
-        precision=config["factor_precision"])
+    cell = apply_cell.build(args.workload, dev, "torch_apply_spans")
+    fac, n, traffic = cell["fac"], cell["n"], cell["traffic"]
     nrhs = traffic["rhs_per_step"]
     k = traffic["traced_steps"]
     card = bench.power_limit() if cuda else "cpu"
@@ -126,6 +101,7 @@ def main(argv=None) -> int:
     out = dict(workload=args.workload, card=card, traced_requests=k,
                seeds={})
     for seed in (int(s) for s in args.seeds.split(",")):
+        launched = ck.LAUNCHES["csr_matvec_f64"]
         for i in range(traffic["warmup_steps"]):
             request(seed, i + 1)
         with tr.traced(dev) as held:
@@ -149,13 +125,19 @@ def main(argv=None) -> int:
                 profile.span_totals(host, w0, w1).items(),
                 key=lambda kv: -kv[1][0])},
             refiner={key: fac._refiner.stats[key] for key in (
-                "host_applies", "cycles", "outers", "extended")},
+                "host_applies", "cycles", "outers", "extended",
+                "device_residuals")},
             harness=harness)
+        row["csr_matvec_launches"] = (ck.LAUNCHES["csr_matvec_f64"]
+                                      - launched)
         del prof, held
         out["seeds"][seed] = row
         log(f"# seed {seed}: window {row['window_s']:.4f} s, busy "
             f"{busy:.4f} s, idle {100 * row['idle_share']:.2f}%, put down "
             f"to a span {100 * (row['explained'] or 0):.2f}% [{card}]")
+        log(f"#   refiner (last request) {row['refiner']}; csr_matvec "
+            f"launches over the seed's requests "
+            f"{row['csr_matvec_launches']}")
         for name in {**row["idle_under_ms"], **row["spans_ms"]}:
             ms = row["idle_under_ms"].get(name, 0.0)
             span_ms = row["spans_ms"].get(name, [0.0, 0])

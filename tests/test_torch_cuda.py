@@ -155,6 +155,75 @@ def test_engine_on_card_matches_cpu(card, problem):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nrhs", [1, 4, 9])
+def test_csr_residual_kernel_matches_plain(card, problem, nrhs):
+    """The refiner's product kernel on its own ELL operands, bit for bit
+    against its plain version on the card and scipy's A @ X (so b minus it
+    is scipy's B - A @ X), pad rows included; a refined solve counts one
+    launch per device residual."""
+    matrix, maps = problem
+    fac = MultifrontalFactorization(matrix, maps=maps, device=card)
+    ref = fac._device_refiner()
+    n = matrix.flat_len
+    assert bool((ref._ell_col == n).any())
+    rng = np.random.default_rng(nrhs)
+    X = rng.standard_normal((n, nrhs)) * np.exp(rng.uniform(-8, 8, (n, 1)))
+    B = rng.standard_normal((n, nrhs))
+    Xd, Bd = (torch.from_numpy(a).to(card) for a in (X, B))
+    before = ck.LAUNCHES["csr_matvec_f64"]
+    got = ck.csr_matvec(ref._ell_col, ref._ell_val64, Xd)
+    want = ck.csr_matvec_plain(ref._ell_col, ref._ell_val64, Xd)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["csr_matvec_f64"] == before + 1
+    assert torch.equal(got, want)
+    A = matrix.to_scipy()
+    assert np.array_equal(got.cpu().numpy(), A @ X)
+    assert np.array_equal((Bd - got).cpu().numpy(), B - A @ X)
+    before = ck.LAUNCHES["csr_matvec_f64"]
+    fac.solve(B)
+    st = ref.stats
+    assert (ck.LAUNCHES["csr_matvec_f64"] - before
+            == st["device_residuals"] >= 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [40, 100, 200])
+def test_csr_residual_kernel_wide_rows(card, E):
+    """Rows wider than the fixture's, which take fewer rows a block and,
+    from E = 97 on, more than 48 KB of shared memory; 1 and 9 right-hand
+    sides (a pass of 8 and one of 1), a last block left part empty."""
+    from scipy import sparse
+
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+        SparseMatrix)
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.refine import (
+        DeviceRefiner)
+    n = 1000
+    rng = np.random.default_rng(E)
+    lens = rng.integers(1, E + 1, n)
+    lens[0] = E
+    indptr = np.r_[0, np.cumsum(lens)]
+    indices = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                              for k in lens])
+    A = sparse.csr_matrix((rng.standard_normal(indptr[-1]), indices,
+                           indptr), shape=(n, n))
+    ref = DeviceRefiner.__new__(DeviceRefiner)
+    ref.n, ref._rowptr, ref.device = n, A.indptr, card
+    ref._bind_matrix(SparseMatrix(nzval=A.data, colind=A.indices,
+                                  rowptr=A.indptr, coupled_tracer_cnt=1))
+    assert ref._ell_col.shape == (n, E)
+    for nrhs in (1, 9):
+        X = rng.standard_normal((n, nrhs))
+        B = rng.standard_normal((n, nrhs))
+        Xd, Bd = (torch.from_numpy(a).to(card) for a in (X, B))
+        got = ck.csr_matvec(ref._ell_col, ref._ell_val64, Xd)
+        want = ck.csr_matvec_plain(ref._ell_col, ref._ell_val64, Xd)
+        assert torch.equal(got, want)
+        assert np.array_equal(got.cpu().numpy(), A @ X)
+        assert np.array_equal((Bd - got).cpu().numpy(), B - A @ X)
+
+
+@pytest.mark.cuda
 def test_f32_engine_on_card_matches_cpu(card, problem):
     """The f32 engine on the card through K2 and K3-f32 against the same
     engine on the CPU: both refine to 1e-11 on their f32 factors without

@@ -448,6 +448,33 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
                          p_arr, 0.0)
 
 
+def test_csr_residual_takes_its_plain_version_and_rejects_bad_inputs():
+    """On the CPU csr_matvec, the residual's product, runs its plain
+    version without building or counting a launch; it takes float64
+    (n, E) operands and a contiguous (n, nrhs) float64 x, and nothing
+    else."""
+    col = torch.tensor([[0, 1, 3], [2, 3, 3], [0, 1, 2]])
+    val = torch.tensor([[2.0, -1.0, 0.0], [4.0, 0.0, 0.0],
+                        [0.5, 0.25, 1.0]], dtype=torch.float64)
+    x = torch.tensor([[1.0, 2.0], [3.0, -1.0], [0.5, 8.0]],
+                     dtype=torch.float64)
+    before = dict(ck.LAUNCHES)
+    y = ck.csr_matvec(col, val, x)
+    assert ck.LAUNCHES == before and ck._lib is None
+    assert torch.equal(y, torch.tensor([[-1.0, 5.0], [2.0, 32.0],
+                                        [1.75, 8.75]], dtype=torch.float64))
+    with pytest.raises(TypeError, match="float64"):
+        ck.csr_matvec(col, val, x.float())
+    with pytest.raises(TypeError, match="float64"):
+        ck.csr_matvec(col, val.float(), x)
+    with pytest.raises(ValueError, match="shape"):
+        ck.csr_matvec(col, val, x[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.csr_matvec(col, val, torch.zeros(2, 3, dtype=torch.float64).T)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.csr_matvec(col.to("meta"), val.to("meta"), x.to("meta"))
+
+
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

@@ -25,6 +25,9 @@ from nk_ocn_tracer_jacobian_precond_tpu.solver.mf import (
 from nk_ocn_tracer_jacobian_precond_tpu.solver.symbolic import (
     symbolic_from_matrix)
 from nk_ocn_tracer_jacobian_precond_tpu.testdata import make_circ_file
+from nk_ocn_tracer_jacobian_precond_tpu_torch.io.matrixfile import (
+    SparseMatrix as TorchSparseMatrix)
+from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import cuda_kernels as ck
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf_torch
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import refine
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
@@ -300,9 +303,10 @@ def test_polish_goes_on_to_tol(problem, monkeypatch):
     bnorm = np.linalg.norm(B, axis=0)
 
     def correct(R):
+        R = R.numpy()
         rel = np.linalg.norm(R, axis=0) / bnorm
         keep = np.maximum(0.01, np.minimum(1.0, 5e-8 / rel))
-        return lu.solve(R * (1.0 - keep))
+        return torch.from_numpy(lu.solve(R * (1.0 - keep)))
 
     def cycle(b, m, dtype):
         return torch.from_numpy(0.6 * lu.solve(b.double().numpy())).to(dtype)
@@ -319,8 +323,9 @@ def test_polish_goes_on_to_tol(problem, monkeypatch):
 def test_extended_residual_where_float64_rounds():
     """The refiner's extended-precision residual on a system with heavy
     cancellation (|A| |x| some 1e6 times |b|): against the exact residual
-    (rational arithmetic), the float64 one is off by its own rounding, the
-    long double one by a small fraction of that."""
+    (rational arithmetic), the float64 one (b minus csr_matvec's plain
+    version on the refiner's ELL operands) is off by its own rounding, the long
+    double one by a small fraction of that."""
     from fractions import Fraction
 
     import scipy.sparse as sp
@@ -334,8 +339,139 @@ def test_extended_residual_where_float64_rounds():
         Fraction(A.data[k]) * Fraction(X[A.indices[k], j])
         for k in range(A.indptr[i], A.indptr[i + 1])))
         for j in range(2)] for i in range(n)])
-    ref = refine.DeviceRefiner.__new__(refine.DeviceRefiner)
-    ref.A, ref._A_ext = A, None
-    err64 = np.abs(ref._host_residual(B, X, False) - exact).max()
-    err_ext = np.abs(ref._host_residual(B, X, True) - exact).max()
+    ref = _bare_refiner(TorchSparseMatrix(
+        nzval=A.data, colind=A.indices, rowptr=A.indptr,
+        coupled_tracer_cnt=1))
+    r64 = torch.from_numpy(B) - ck.csr_matvec_plain(
+        ref._ell_col, ref._ell_val64, torch.from_numpy(X))
+    err64 = np.abs(r64.numpy() - exact).max()
+    err_ext = np.abs(ref._host_residual(B, X) - exact).max()
     assert err64 > 1e-12 and err_ext <= 1e-2 * err64, (err64, err_ext)
+
+
+def _bare_refiner(matrix):
+    """A refiner with no engine, holding ``matrix``'s operands on the CPU
+    as a refiner stages them."""
+    ref = refine.DeviceRefiner.__new__(refine.DeviceRefiner)
+    ref.n, ref._rowptr, ref.device = (matrix.flat_len,
+                                      np.asarray(matrix.rowptr), CPU)
+    ref._bind_matrix(matrix)
+    return ref
+
+
+def _bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, np.float64)).view(np.int64)
+
+
+@pytest.mark.parametrize("nrhs", [1, 4])
+def test_csr_residual_is_scipys_residual(problem, nrhs):
+    """csr_matvec's plain version on the refiner's own ELL operands
+    equals scipy's A @ X bit for bit (each row summed in CSR order, from
+    zero), pad rows included; so the refiner's float64 product and its
+    float64 residual, b minus it, equal scipy's."""
+    matrix, _, _ = problem
+    ref = _bare_refiner(matrix)
+    n = matrix.flat_len
+    rowlen = np.diff(np.asarray(matrix.rowptr))
+    assert (rowlen < ref._ell_col.shape[1]).sum() > n // 2
+    assert int((ref._ell_col == n).sum()) == (ref._ell_col.shape[1] * n
+                                              - matrix.nnz)
+    rng = np.random.default_rng(nrhs)
+    X = rng.standard_normal((n, nrhs)) * np.exp(rng.uniform(-8, 8, (n, 1)))
+    B = rng.standard_normal((n, nrhs))
+    AX = matrix.to_scipy() @ X
+    want = B - AX
+    got = ck.csr_matvec(ref._ell_col, ref._ell_val64, torch.from_numpy(X))
+    assert np.array_equal(_bits(got.numpy()), _bits(AX))
+    got = ref._spmv(torch.from_numpy(X))
+    assert np.array_equal(_bits(got.numpy()), _bits(AX))
+    stats = dict(device_residuals=0)
+    got = ref._residual64(torch.from_numpy(B), torch.from_numpy(X), stats)
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+    assert stats["device_residuals"] == 1
+
+
+@pytest.fixture(scope="module")
+def fac_1e12(problem):
+    """The port's facade at float64 with refine_tol 1e-12, which plain
+    refinement reaches in two corrections on this fixture, as in the
+    benchmark's apply requests."""
+    matrix, maps, sym = problem
+    return MultifrontalFactorization(matrix, maps=maps, sym=sym,
+                                     device="cpu", refine_tol=1e-12)
+
+
+def test_plain_refinement_is_the_host_recipe(problem, fac_1e12):
+    """A solve that plain refinement finishes (refine_tol 1e-12) returns
+    the host recipe's X bit for bit: X = M^-1 B, then R = B - A X in
+    scipy and X += M^-1 R while the residual is above tol, with the same
+    phases, plain applies and outer steps."""
+    matrix = problem[0]
+    fac = fac_1e12
+    B = np.random.default_rng(12).standard_normal((matrix.flat_len, 2))
+    X = fac.solve(B)
+    ref = fac._refiner
+    st = ref.stats
+
+    def precond(R):
+        return ref._precond(torch.from_numpy(R)).numpy()
+    A = matrix.to_scipy()
+    bnorm = np.linalg.norm(B, axis=0)
+    Xh, R, applies, outers = None, B, 0, 1
+    while (np.linalg.norm(R, axis=0) / bnorm).max() > ref.tol:
+        Xh = precond(R) if Xh is None else Xh + precond(R)
+        R = B - A @ Xh
+        applies += 1
+        outers += 1
+    assert applies >= 2 and st["phases"] == ["ir"] * applies, st
+    assert st["host_applies"] == applies and st["outers"] == outers, st
+    assert st["extended"] == 0 and st["device_residuals"] == outers - 1
+    assert np.array_equal(X, Xh)
+    np.testing.assert_allclose(st["best_rels"], np.linalg.norm(
+        R, axis=0) / bnorm, rtol=1e-12)
+
+
+class _NoHostMatrix:
+    """Stands in for a scipy matrix that no code may touch."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"the host matrix was used ({name})")
+
+    def __matmul__(self, other):
+        raise AssertionError("a host SpMV")
+
+    __rmatmul__ = __matmul__
+
+
+def test_a_refined_solve_takes_no_host_spmv(problem, fac_1e12,
+                                           monkeypatch):
+    """With the refiner's scipy matrix and the facade's host check made to
+    raise, a refined solve that needs no long-double pass succeeds: every
+    float64 residual takes csr_matvec (one a step past outer 0, whose
+    residual is B itself), and the facade judges the refiner's own
+    per-column residuals."""
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf
+    matrix = problem[0]
+    fac = fac_1e12
+    ref = fac._device_refiner()
+    calls = []
+    real = refine.csr_matvec
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+    monkeypatch.setattr(refine, "csr_matvec", counted)
+    monkeypatch.setattr(ref, "A", _NoHostMatrix())
+    monkeypatch.setattr(fac, "A", _NoHostMatrix())
+
+    def refuse(*a):
+        raise AssertionError("the facade's host check ran")
+    monkeypatch.setattr(mf, "_rel_residuals", refuse)
+    B = np.random.default_rng(13).standard_normal((matrix.flat_len, 3))
+    X = fac.solve(B)
+    st = ref.stats
+    assert st["extended"] == 0 and st["outers"] >= 2, st
+    assert len(calls) == st["device_residuals"] == st["outers"] - 1
+    assert len(st["best_rels"]) == 3
+    assert max(st["best_rels"]) == st["best_rel"] <= 1e-12
+    assert _res(matrix, X, B).max() <= 1e-12
