@@ -619,6 +619,9 @@ class TorchMultifrontal:
                          else pack_block_size(self.plans))
         self.layouts = [round_layout(p, self.ndev, self.me, row_shard_min)
                         for p in self.plans]
+        # the solve spans' arguments: each round's front shape
+        self._round_args = [dict(round=r, B=p.B, P=p.P, N=p.N)
+                            for r, p in enumerate(self.plans)]
         if mesh is not None:
             self._check_plans()
         dbg(1, "memory plan: " + plan_memory(
@@ -1120,7 +1123,7 @@ class TorchMultifrontal:
         if self.factors is None:
             raise RuntimeError("no numeric factors: call refactor() first")
         mesh = self.mesh
-        with span("engine.sweep"):
+        with span("engine.sweep", pack_bs=self._pack_bs):
             if mesh is not None and mesh.rhs_groups \
                     and W.shape[1] % mesh.shape[1] == 0:
                 w = W.shape[1] // mesh.shape[1]
@@ -1133,14 +1136,16 @@ class TorchMultifrontal:
         """The forward then backward sweep over all rounds, in place; hi
         rounds (``_hi_round``) substitute in float64 on transient upcasts
         of the factors and store back at W's dtype. Each round's
-        substitution is a span, its round number in the range's arguments."""
+        substitution is a span, its round number and front shape (B, P, N)
+        in the range's arguments."""
         consts = [self._round_consts(r) for r in range(len(self.plans))]
         hi = [self._hi_round(p) for p in self.plans]
+        args = self._round_args
         for rnd in range(len(self.plans)):
-            with span("engine.fwd", round=rnd):
+            with span("engine.fwd", **args[rnd]):
                 W = self._fwd(rnd, W, consts[rnd], hi[rnd])
         for rnd in reversed(range(len(self.plans))):
-            with span("engine.bwd", round=rnd):
+            with span("engine.bwd", **args[rnd]):
                 W = self._bwd(rnd, W, consts[rnd], hi[rnd])
         return W
 
@@ -1206,6 +1211,19 @@ class TorchMultifrontal:
         if lay.split:
             x = coll.all_gather(x, self._fgroup)
         return set_own(W, x, cc["own"])
+
+    def sweep_bytes(self, nrhs: int = 1) -> int:
+        """The bytes one forward-plus-backward sweep of ``nrhs`` right-hand
+        sides reads and writes at the least, counted from the resident
+        tensors: each round's K once (its lower triangle in the forward
+        sweep, its upper in the backward), L21, U12 and perm once each, and
+        the workspace (flat_len + 1, nrhs) read and written once. Under a
+        mesh, this rank's slices."""
+        if self.factors is None:
+            raise RuntimeError("no numeric factors: call refactor() first")
+        n = sum(t.numel() * t.element_size() for f in self.factors
+                for t in f)
+        return n + 2 * (self.flat_len + 1) * nrhs * self.prec.itemsize
 
     def solve(self, b: np.ndarray) -> np.ndarray:
         """x = A^-1 b on the host arrays b (n,) or (n, nrhs); the RHS is

@@ -11,6 +11,9 @@ twice: by the harness (``summarize``: busy and window seconds, the idle
 gaps by the innermost host event) and by ``drivers/profile.py``'s
 arithmetic: every idle gap put down to the innermost ``nk.*`` span
 (``idle_under``) and each span's host seconds and count, per request.
+Beside them: the engine's ``sweep_bytes`` (the bytes one sweep of the
+mix's right-hand sides reads at the least) and each traced request's
+preconditioner applications (the refiner's ``host_applies`` + ``cycles``).
 
 With ``--cost N``: N requests with every span on and N with every span
 the no-op, alternated one by one, first under one profiler, then without
@@ -89,6 +92,8 @@ def main(argv=None) -> int:
     card = bench.power_limit() if cuda else "cpu"
     log = lambda s: print(s, file=sys.stderr, flush=True)  # noqa: E731
 
+    applies: list[int] = []
+
     def request(seed: int, index: int) -> float:
         B = check.step_rhs(n, seed, index, nrhs)
         with torch.profiler.record_function("bench.solve"):
@@ -96,14 +101,22 @@ def main(argv=None) -> int:
             fac.solve(B)
             if cuda:
                 torch.cuda.synchronize(dev)
-            return time.perf_counter() - t0
+            t = time.perf_counter() - t0
+        st = fac._refiner.stats
+        applies.append(st["host_applies"] + st["cycles"])
+        return t
 
+    sweep_bytes = fac.engine.sweep_bytes(nrhs)
     out = dict(workload=args.workload, card=card, traced_requests=k,
+               sweep_bytes=sweep_bytes, pack_bs=fac.engine._pack_bs,
                seeds={})
+    log(f"# sweep_bytes {sweep_bytes} ({nrhs} rhs, pack block "
+        f"{fac.engine._pack_bs}, {len(fac.engine.plans)} rounds)")
     for seed in (int(s) for s in args.seeds.split(",")):
         launched = ck.LAUNCHES["csr_matvec_f64"]
         for i in range(traffic["warmup_steps"]):
             request(seed, i + 1)
+        applies.clear()
         with tr.traced(dev) as held:
             lat = [request(seed, 100 + i) for i in range(k)]
         prof = held.pop("prof")
@@ -127,7 +140,7 @@ def main(argv=None) -> int:
             refiner={key: fac._refiner.stats[key] for key in (
                 "host_applies", "cycles", "outers", "extended",
                 "device_residuals")},
-            harness=harness)
+            applies=list(applies), harness=harness)
         row["csr_matvec_launches"] = (ck.LAUNCHES["csr_matvec_f64"]
                                       - launched)
         del prof, held
@@ -137,7 +150,8 @@ def main(argv=None) -> int:
             f"to a span {100 * (row['explained'] or 0):.2f}% [{card}]")
         log(f"#   refiner (last request) {row['refiner']}; csr_matvec "
             f"launches over the seed's requests "
-            f"{row['csr_matvec_launches']}")
+            f"{row['csr_matvec_launches']}; applications per traced "
+            f"request {row['applies']} of {sweep_bytes} bytes a sweep")
         for name in {**row["idle_under_ms"], **row["spans_ms"]}:
             ms = row["idle_under_ms"].get(name, 0.0)
             span_ms = row["spans_ms"].get(name, [0.0, 0])
