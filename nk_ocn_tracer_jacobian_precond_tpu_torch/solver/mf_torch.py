@@ -52,6 +52,12 @@ no mesh, communicates nothing.
 Index tensors go to the device once, as int64 (p_arr, a count, as int32).
 Functions that take F update it in place where that saves memory, and say
 so.
+
+A single-device CUDA engine replays its solve sweep as one CUDA graph
+(``solve_workspace``): the second sweep at a right-hand-side width on the
+same factors captures the eager sweep's launches, in the same order, and
+every later sweep at that width replays them on a static workspace. New
+factors drop every graph.
 """
 
 from __future__ import annotations
@@ -527,6 +533,20 @@ def factors_from_jax(jax_engine, device, mesh=None) -> tuple:
 # the engine
 # --------------------------------------------------------------------------
 
+def _can_capture(device: torch.device) -> bool:
+    """Whether work on ``device`` can be captured into a CUDA graph."""
+    return device.type == "cuda"
+
+
+def _capture(body):
+    """A CUDA graph of ``body()`` on the current device: capturing records
+    its launches without running them; ``replay()`` runs them."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    return graph
+
+
 def pack_block_size(plans) -> int:
     """The adaptive solve block size of ``pack_diag_inv``: full explicit
     diagonal-block inverses on shallow trees, narrower blocks as element
@@ -637,12 +657,35 @@ class TorchMultifrontal:
                 for rnd in range(len(self.plans)):
                     self._round_consts(rnd)
         self.timings["plan"] = time.perf_counter() - t0
+        # the captured sweeps, by (width, dtype): (static workspace, graph);
+        # the keys swept once eagerly on the current factors; the sweeps
+        # by route; the factor generation (see ``factors``)
+        self._graphs: dict = {}
+        self._swept: set = set()
+        self.sweep_counts = {"eager": 0, "captured": 0, "replayed": 0}
+        self.generation = 0
         self.factors = None
         self.loaded_rounds: list[int] = []
         # the replicated diagonal-block stacks of the masked rounds
         self.kd: list = [None] * len(self.plans)
         if factorize:
             self._factorize(matrix)
+
+    @property
+    def factors(self):
+        """Per-round (K, U12, L21, perm), or None."""
+        return self._factors
+
+    @factors.setter
+    def factors(self, factors) -> None:
+        # a captured sweep reads the factors at the addresses it was
+        # captured on and holds no reference to them: every graph and its
+        # pool goes before the old factors can be freed, and the next
+        # factors start a generation of their own
+        self._graphs.clear()
+        self._swept.clear()
+        self.generation += 1
+        self._factors = factors
 
     # -- placement ----------------------------------------------------------
 
@@ -1119,18 +1162,56 @@ class TorchMultifrontal:
         Under a mesh every rank passes the same W and gets the same
         result. With an "rhs" axis whose size divides nrhs, each mesh
         column solves its own block of columns and the blocks are
-        gathered along the rows of the mesh (mf_jax._put_rhs)."""
+        gathered along the rows of the mesh (mf_jax._put_rhs).
+
+        The sweep takes one of three routes (``sweep_counts`` counts
+        them; the span's ``route`` argument names it): "eager", launch by
+        launch; on a graphable engine (``_graphable``) the second sweep
+        at a width on the same factors is "capture", which records the
+        eager sweep's launches into a CUDA graph over a static workspace
+        and replays it once, and every later one "replay": W is copied
+        in, the graph launched and the result copied back to W."""
         if self.factors is None:
             raise RuntimeError("no numeric factors: call refactor() first")
         mesh = self.mesh
-        with span("engine.sweep", pack_bs=self._pack_bs):
-            if mesh is not None and mesh.rhs_groups \
-                    and W.shape[1] % mesh.shape[1] == 0:
-                w = W.shape[1] // mesh.shape[1]
-                c = mesh.coords[1]
-                Wc = self._sweep(W[:, c * w:(c + 1) * w].contiguous())
-                return coll.all_gather(Wc, mesh.rhs_group, dim=1)
-            return self._sweep(W)
+        key = (W.shape[1], W.dtype)
+        if key in self._graphs:
+            route = "replay"
+        elif key in self._swept and self._graphable():
+            route = "capture"
+        else:
+            route = "eager"
+        with span("engine.sweep", pack_bs=self._pack_bs, route=route):
+            if route == "eager":
+                self.sweep_counts["eager"] += 1
+                self._swept.add(key)
+                if mesh is not None and mesh.rhs_groups \
+                        and W.shape[1] % mesh.shape[1] == 0:
+                    w = W.shape[1] // mesh.shape[1]
+                    c = mesh.coords[1]
+                    Wc = self._sweep(W[:, c * w:(c + 1) * w].contiguous())
+                    return coll.all_gather(Wc, mesh.rhs_group, dim=1)
+                return self._sweep(W)
+            if route == "capture":
+                self.sweep_counts["captured"] += 1
+                static = torch.zeros(W.shape, dtype=W.dtype, device=W.device)
+                self._graphs[key] = (static,
+                                     _capture(lambda: self._sweep(static)))
+            else:
+                self.sweep_counts["replayed"] += 1
+            static, graph = self._graphs[key]
+            static.copy_(W)
+            graph.replay()
+            return W.copy_(static)
+
+    def _graphable(self) -> bool:
+        """Whether the sweep may be captured: a CUDA engine without a mesh
+        (whose rounds call collectives) and without offloaded factors,
+        none of whose rounds is a ``_hi_round`` (a graph's pool would pin
+        their float64 upcasts of the factors)."""
+        return (_can_capture(self.device) and self.mesh is None
+                and not self._offload
+                and not any(self._hi_round(p) for p in self.plans))
 
     def _sweep(self, W: torch.Tensor) -> torch.Tensor:
         """The forward then backward sweep over all rounds, in place; hi

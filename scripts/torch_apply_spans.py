@@ -14,6 +14,12 @@ arithmetic: every idle gap put down to the innermost ``nk.*`` span
 Beside them: the engine's ``sweep_bytes`` (the bytes one sweep of the
 mix's right-hand sides reads at the least) and each traced request's
 preconditioner applications (the refiner's ``host_applies`` + ``cycles``).
+The sweeps' routes: the engine's ``sweep_counts`` after each seed's
+requests, the ``route`` of each ``nk.engine.sweep`` of one more request
+(profiled with its ranges' arguments) and the host's launch calls inside
+each, and the device operations and launch calls of one sweep by the
+eager body (``_sweep``) against one by the engine's own route
+(``solve_workspace``: a graph launch and two copies once it replays).
 
 With ``--cost N``: N requests with every span on and N with every span
 the no-op, alternated one by one, first under one profiler, then without
@@ -60,6 +66,58 @@ def spans_off():
     finally:
         for m, s in zip(mods, saved):
             m.span = s
+
+
+# the host's calls that put work on the device's queue
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def _launch_calls(events, t0: int = 0, t1: float = float("inf")) -> int:
+    """The host's launch calls among ``events`` that start in [t0, t1]
+    (ns)."""
+    return sum(1 for e in events if e.name() in LAUNCH_CALLS
+               and t0 <= e.start_ns() <= t1)
+
+
+def sweep_routes(request, seed: int, index: int, acts) -> list:
+    """(route, host launch calls) of each ``nk.engine.sweep`` of one
+    request, profiled with its ranges' arguments."""
+    import torch
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        request(seed, index)
+    events = list(prof.profiler.kineto_results.events())
+    out = []
+    for e in sorted(events, key=lambda e: e.start_ns()):
+        if e.name() == "nk.engine.sweep":
+            t0 = e.start_ns()
+            out.append([e.kwinputs().get("route"),
+                        _launch_calls(events, t0, t0 + e.duration_ns())])
+    return out
+
+
+def sweep_ops(eng, nrhs: int, dev, acts) -> dict:
+    """Device operations and host launch calls of one sweep of ``nrhs``
+    right-hand sides: the eager body against the engine's own route,
+    each alone under a profiler."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import profile
+    W = torch.zeros((eng.flat_len + 1, nrhs), dtype=eng.prec, device=dev)
+    W[:eng.flat_len] = 1.0
+    out = {}
+    for name, fn in (("eager", eng._sweep), ("route", eng.solve_workspace)):
+        x = W.clone()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn(x)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        events = list(prof.profiler.kineto_results.events())
+        out[name] = dict(device_ops=len(profile.timeline(events)[1]),
+                         launch_calls=_launch_calls(events))
+    return out
 
 
 def main(argv=None) -> int:
@@ -112,6 +170,9 @@ def main(argv=None) -> int:
                seeds={})
     log(f"# sweep_bytes {sweep_bytes} ({nrhs} rhs, pack block "
         f"{fac.engine._pack_bs}, {len(fac.engine.plans)} rounds)")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     for seed in (int(s) for s in args.seeds.split(",")):
         launched = ck.LAUNCHES["csr_matvec_f64"]
         for i in range(traffic["warmup_steps"]):
@@ -144,6 +205,8 @@ def main(argv=None) -> int:
         row["csr_matvec_launches"] = (ck.LAUNCHES["csr_matvec_f64"]
                                       - launched)
         del prof, held
+        row["sweep_routes"] = sweep_routes(request, seed, 100 + k, acts)
+        row["sweep_counts"] = dict(fac.engine.sweep_counts)
         out["seeds"][seed] = row
         log(f"# seed {seed}: window {row['window_s']:.4f} s, busy "
             f"{busy:.4f} s, idle {100 * row['idle_share']:.2f}%, put down "
@@ -160,6 +223,11 @@ def main(argv=None) -> int:
         if harness is not None:
             log("#   harness idle_gaps: " + ", ".join(
                 f"{name} {s:.4f}" for name, s in harness["idle_gaps"]))
+        log(f"#   sweep_counts {row['sweep_counts']}; one more request's "
+            f"sweeps (route, launch calls): {row['sweep_routes']}")
+    out["sweep_ops"] = sweep_ops(fac.engine, nrhs, dev, acts)
+    log(f"# one sweep of {nrhs} rhs, device operations and launch calls: "
+        f"{out['sweep_ops']} [{card}]")
     if args.cost:
         seed = int(args.seeds.split(",")[0])
         for traced in (True, False):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card,
+and the engine's solve sweep replayed as a CUDA graph against its eager
+sweep.
 
 These tests need a CUDA device and skip without one. The file imports
 neither jax nor the JAX package (the machine with the card has no jax), so
@@ -550,3 +552,94 @@ def test_stage_timer_moves_no_launch_on_card(card, problem):
         assert all(r[k] >= 0 for k in STAGE_NAMES + ("walk",))
     assert abs(sum(prof["totals"].values()) + prof["walk_ms"]
                - prof["wall_ms"]) <= 0.01 * prof["wall_ms"]
+
+
+def _card_engine(card, problem, matrix=None):
+    """A float64 engine on the card over the facade's equilibrated matrix
+    (``matrix`` replaces its values), and that facade."""
+    matrix0, maps = problem
+    fac = MultifrontalFactorization(matrix0, maps=maps, device=card)
+    eng = mf_torch.TorchMultifrontal(fac.sym, matrix or fac._fac_matrix,
+                                     card)
+    return eng, fac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrhs", [1, 4])
+def test_sweep_graph_replays_the_eager_sweep_bitwise(card, problem, nrhs):
+    """The solve sweep as one CUDA graph: the first sweep at a width is
+    eager, the second captures and replays, every later one replays; all
+    give the eager sweep's bits, and the counters say so."""
+    eng, _ = _card_engine(card, problem)
+    assert eng._graphable()
+    B = np.random.default_rng(21).standard_normal((eng.flat_len, nrhs))
+    got = [eng.solve(B) for _ in range(4)]
+    assert all(np.array_equal(x, got[0]) for x in got[1:])
+    assert eng.sweep_counts == dict(eager=1, captured=1, replayed=2)
+    assert list(eng._graphs) == [(nrhs, torch.float64)]
+    # the eager body once more, on the same factors
+    W = torch.zeros((eng.flat_len + 1, nrhs), dtype=torch.float64,
+                    device=card)
+    W[:eng.flat_len] = torch.from_numpy(B).to(card)
+    eager = eng._sweep(W)[:eng.flat_len].cpu().numpy()
+    assert np.array_equal(eager, got[0])
+
+
+@pytest.mark.cuda
+def test_sweep_graphs_by_width_and_after_a_refactor(card, problem):
+    """1 and 4 right-hand sides get a graph each; a refactor with new
+    values drops both, and the next solves equal a fresh engine's eager
+    solve on those values (a graph kept across the refactor would read the
+    freed factors, or the new ones at the old addresses by chance)."""
+    import dataclasses
+    eng, fac = _card_engine(card, problem)
+    B = np.random.default_rng(22).standard_normal((eng.flat_len, 4))
+    for nrhs in (1, 4, 1, 4, 1, 4):
+        eng.solve(B[:, :nrhs])
+    assert eng.sweep_counts == dict(eager=2, captured=2, replayed=2)
+    gen = eng.generation
+    noise = np.random.default_rng(23).standard_normal(
+        len(fac._fac_matrix.nzval))
+    new = dataclasses.replace(
+        fac._fac_matrix, nzval=fac._fac_matrix.nzval * (1 + 1e-3 * noise))
+    eng.refactor(new)
+    assert eng._graphs == {} and eng.generation > gen
+    fresh = mf_torch.TorchMultifrontal(fac.sym, new, card)
+    for nrhs in (1, 4):
+        want = fresh.solve(B[:, :nrhs])
+        for _ in range(3):
+            assert np.array_equal(eng.solve(B[:, :nrhs]), want)
+    assert fresh.sweep_counts == dict(eager=2, captured=0, replayed=0)
+    assert eng.sweep_counts == dict(eager=4, captured=4, replayed=4)
+
+
+@pytest.mark.cuda
+def test_profiler_records_the_replayed_kernels(card, problem):
+    """A profiler started after the capture sees every kernel of a replay:
+    one sweep on the replay route shows as many device operations as the
+    eager body launches, plus the two copies, while the host launches one
+    graph."""
+    eng, _ = _card_engine(card, problem)
+    W = torch.zeros((eng.flat_len + 1, 1), dtype=torch.float64, device=card)
+    W[:eng.flat_len] = 1.0
+    for _ in range(2):
+        eng.solve_workspace(W.clone())
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ops = {}
+    for route, fn in (("eager", eng._sweep), ("replay", eng.solve_workspace)):
+        x = W.clone()
+        torch.cuda.synchronize(card)
+        with torch.profiler.profile(activities=acts) as prof:
+            fn(x)
+            torch.cuda.synchronize(card)
+        ev = prof.profiler.kineto_results.events()
+        ops[route] = sum(1 for e in ev if e.device_type()
+                         == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation())
+        ops[route + "_graph_launches"] = sum(
+            1 for e in ev if "GraphLaunch" in e.name())
+    assert eng.sweep_counts["replayed"] == 1
+    assert ops["eager_graph_launches"] == 0
+    assert ops["replay_graph_launches"] == 1
+    assert ops["replay"] == ops["eager"] + 2, ops
