@@ -14,14 +14,17 @@ dependency order; each round is a batch of padded dense fronts (B, N, N):
 4. packing of the pivot block's diagonal-block inverses for the solve.
 
 The stored factors per round are K (B, P, P) (the ``pack_diag_inv``
-layout), U12 (B, P, M), L21 (B, M, P) and perm (B, P). The solve walks
-the rounds forward then backward over a (flat_len + 1, nrhs) workspace
-whose last row takes every pad index; the forward sweep subtracts each
-round's border updates in waves of distinct destinations, so its sums
-are the same on every run (``border_waves``). With a checkpoint directory
-the engine writes each round to disk and resumes from it
-(``checkpoint.FactorRoundCheckpointer``), and can keep its factors off
-the device (offload, factor-only). Factors, Schur stacks and the
+layout), U12 (B, P, M), L21 (B, M, P) and perm (B, P). That packed
+layout is known only to this module's solve-side building blocks, which
+the stream solve calls too, and to checkpoint._unpack_trimmed's identity
+padding. The solve walks the rounds forward then backward over a
+(flat_len + 1, nrhs) workspace whose last row takes every pad index, one
+round body a direction for every layout (``_fwd``, ``_bwd``); the
+forward sweep subtracts each round's border updates in waves of distinct
+destinations, so its sums are the same on every run (``border_waves``).
+With a checkpoint directory the engine writes each round to disk and
+resumes from it (``checkpoint.FactorRoundCheckpointer``), and can keep
+its factors off the device (offload, factor-only). Factors, Schur stacks and the
 workspace are in the engine's factor dtype ``prec`` (float64, or float32);
 rounds with P >= HI_ROUND_MIN_P run their substitutions in float64 on
 float32 factors.
@@ -144,70 +147,6 @@ def extend_add(F, S_src, src_slots, dst_slots, inv, waves):
     return F
 
 
-def pack_diag_inv(LU, bs: int = PANEL):
-    """Copy of a packed LU (B, P, P) whose bs-sized diagonal blocks are
-    replaced by stril(L_ii^-1, -1) + triu(U_ii^-1); the off-diagonal blocks
-    keep the raw L and U values. The layout the block substitutions read."""
-    B, Pdim, _ = LU.shape
-    with STAGES.stage("pack"):
-        out = LU.clone()
-        for o in range(0, Pdim, bs):
-            T = min(bs, Pdim - o)
-            Ti = LU[:, o:o + T, o:o + T]
-            eye = torch.eye(T, dtype=LU.dtype,
-                            device=LU.device).expand(B, T, T)
-            Li = torch.linalg.solve_triangular(Ti, eye, upper=False,
-                                               unitriangular=True)
-            Ui = torch.linalg.solve_triangular(Ti, eye, upper=True)
-            out[:, o:o + T, o:o + T] = torch.tril(Li, -1) + torch.triu(Ui)
-    return out
-
-
-def block_lower_apply(K, rhs, bs: int = PANEL):
-    """y = L11^-1 rhs by block forward substitution; K in the
-    pack_diag_inv layout (only its leading (P, P) block is read), rhs
-    (B, P, nrhs)."""
-    Pdim = rhs.shape[1]
-    ys = []
-    for o in range(0, Pdim, bs):
-        T = min(bs, Pdim - o)
-        t = rhs[:, o:o + T]
-        if o:
-            t = t - K[:, o:o + T, :o] @ torch.cat(ys, dim=1)
-        KD = K[:, o:o + T, o:o + T]
-        ys.append(t + torch.tril(KD, -1) @ t)
-    return torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
-
-
-def block_upper_apply(K, rhs, bs: int = PANEL):
-    """x = U11^-1 rhs by block backward substitution (layout as above)."""
-    Pdim = rhs.shape[1]
-    xs = []
-    for o in reversed(range(0, Pdim, bs)):
-        T = min(bs, Pdim - o)
-        t = rhs[:, o:o + T]
-        if xs:
-            t = t - K[:, o:o + T, o + T:Pdim] @ torch.cat(xs, dim=1)
-        KD = K[:, o:o + T, o:o + T]
-        xs.insert(0, torch.triu(KD) @ t)
-    return torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
-
-
-def block_upper_apply_right(K, rhs, bs: int = PANEL):
-    """X = rhs @ U11^-1 by block forward substitution over column blocks;
-    rhs (B, M, P)."""
-    Pdim = rhs.shape[2]
-    xs = []
-    for o in range(0, Pdim, bs):
-        T = min(bs, Pdim - o)
-        t = rhs[:, :, o:o + T]
-        if o:
-            t = t - torch.cat(xs, dim=2) @ K[:, :o, o:o + T]
-        KD = K[:, o:o + T, o:o + T]
-        xs.append(t @ torch.triu(KD))
-    return torch.cat(xs, dim=2) if len(xs) > 1 else xs[0]
-
-
 def finish_factor(F, lu, perm, P: int, pack_bs: int = PANEL):
     """Tail of the partial factorization once the pivot block's packed LU
     and row permutation are known: pack the diagonal-block inverses, form
@@ -314,6 +253,8 @@ def partial_factor(F, P: int, p_arr, tau: float = 0.0,
 # --------------------------------------------------------------------------
 # solve-side building blocks
 # --------------------------------------------------------------------------
+# pack_diag_inv writes the packed pivot-block layout; the block
+# substitutions below are its only readers.
 
 def set_own(W, vals, cells_own):
     """W[cells_own] = vals (B, P, nrhs), in place (the scatter form); pad
@@ -339,22 +280,6 @@ def border_waves(cells_bor: np.ndarray, flat_len: int):
     return src, flat[src], waves
 
 
-def fwd_local(W, K, L21, perm, cells_own, bs: int = PANEL,
-              hi: bool = False):
-    """The arithmetic of one round's forward substitution on the fronts of
-    ``cells_own``: (y, upd) at W's dtype, y = L11^-1 P rhs (B, P, nrhs) and
-    the border update upd = L21 y (B, M, nrhs). ``hi``: float64 arithmetic
-    on transient upcasts of the factors."""
-    nrhs = W.shape[1]
-    rhs = W[cells_own]                                   # (B, P, nrhs)
-    rhs = torch.gather(rhs, 1, perm[:, :, None].expand(-1, -1, nrhs))
-    if hi:
-        rhs, K, L21 = rhs.double(), K.double(), L21.double()
-    y = block_lower_apply(K, rhs, bs)
-    upd = (L21 @ y).to(W.dtype)
-    return y.to(W.dtype), upd
-
-
 def fwd_store(W, y, upd, cells_own, border):
     """Store one round's forward results in W, in place: y on the fronts'
     own rows, then the border updates subtracted in the waves of
@@ -369,14 +294,68 @@ def fwd_store(W, y, upd, cells_own, border):
     return W
 
 
-def bwd_local(W, K, U12, cells_own, cells_bor, bs: int = PANEL,
-              hi: bool = False):
-    """x = U11^-1 (rhs - U12 xb) for the fronts of ``cells_own``, at W's
-    dtype (``hi``: see fwd_local)."""
-    rhs, xb = W[cells_own], W[cells_bor]
-    if hi:
-        rhs, xb, K, U12 = rhs.double(), xb.double(), K.double(), U12.double()
-    return block_upper_apply(K, rhs - U12 @ xb, bs).to(W.dtype)
+def pack_diag_inv(LU, bs: int = PANEL):
+    """Copy of a packed LU (B, P, P) whose bs-sized diagonal blocks are
+    replaced by stril(L_ii^-1, -1) + triu(U_ii^-1); the off-diagonal blocks
+    keep the raw L and U values. The layout the block substitutions read."""
+    B, Pdim, _ = LU.shape
+    with STAGES.stage("pack"):
+        out = LU.clone()
+        for o in range(0, Pdim, bs):
+            T = min(bs, Pdim - o)
+            Ti = LU[:, o:o + T, o:o + T]
+            eye = torch.eye(T, dtype=LU.dtype,
+                            device=LU.device).expand(B, T, T)
+            Li = torch.linalg.solve_triangular(Ti, eye, upper=False,
+                                               unitriangular=True)
+            Ui = torch.linalg.solve_triangular(Ti, eye, upper=True)
+            out[:, o:o + T, o:o + T] = torch.tril(Li, -1) + torch.triu(Ui)
+    return out
+
+
+def block_lower_apply(K, rhs, bs: int = PANEL):
+    """y = L11^-1 rhs by block forward substitution; K in the
+    pack_diag_inv layout (only its leading (P, P) block is read), rhs
+    (B, P, nrhs)."""
+    Pdim = rhs.shape[1]
+    ys = []
+    for o in range(0, Pdim, bs):
+        T = min(bs, Pdim - o)
+        t = rhs[:, o:o + T]
+        if o:
+            t = t - K[:, o:o + T, :o] @ torch.cat(ys, dim=1)
+        KD = K[:, o:o + T, o:o + T]
+        ys.append(t + torch.tril(KD, -1) @ t)
+    return torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+
+
+def block_upper_apply(K, rhs, bs: int = PANEL):
+    """x = U11^-1 rhs by block backward substitution (layout as above)."""
+    Pdim = rhs.shape[1]
+    xs = []
+    for o in reversed(range(0, Pdim, bs)):
+        T = min(bs, Pdim - o)
+        t = rhs[:, o:o + T]
+        if xs:
+            t = t - K[:, o:o + T, o + T:Pdim] @ torch.cat(xs, dim=1)
+        KD = K[:, o:o + T, o:o + T]
+        xs.insert(0, torch.triu(KD) @ t)
+    return torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
+
+
+def block_upper_apply_right(K, rhs, bs: int = PANEL):
+    """X = rhs @ U11^-1 by block forward substitution over column blocks;
+    rhs (B, M, P)."""
+    Pdim = rhs.shape[2]
+    xs = []
+    for o in range(0, Pdim, bs):
+        T = min(bs, Pdim - o)
+        t = rhs[:, :, o:o + T]
+        if o:
+            t = t - torch.cat(xs, dim=2) @ K[:, :o, o:o + T]
+        KD = K[:, o:o + T, o:o + T]
+        xs.append(t @ torch.triu(KD))
+    return torch.cat(xs, dim=2) if len(xs) > 1 else xs[0]
 
 
 def extract_diag_blocks(K, bs: int):
@@ -416,6 +395,14 @@ def block_upper_apply_masked(K, KD, rhs, c0: int, reduce):
                                       @ x[:, c0:c0 + Kc])
         x[:, o:o + bs] = torch.triu(KD[:, i]) @ t
     return x
+
+
+def upcast(hi: bool, *ts):
+    """``ts`` in float64 when ``hi`` (a hi round's transient upcasts: see
+    HI_ROUND_MIN_P), else as they are; a None stays None."""
+    if not hi:
+        return ts
+    return tuple(None if t is None else t.double() for t in ts)
 
 
 # --------------------------------------------------------------------------
@@ -1231,64 +1218,52 @@ class TorchMultifrontal:
         return W
 
     def _fwd(self, rnd: int, W, cc: dict, hi: bool):
-        """One round's forward substitution: this rank's fronts of a
-        batch-sharded round (all of them without a mesh), whose results
-        every rank then gathers; a row-sharded round's masked substitution
-        over the column shards of K and its row-sharded border update; a
-        replicated round as on one device. Every rank stores the whole
-        round's results in the single-device order."""
-        K, U12, L21, perm = self.factors[rnd]
-        lay, plan = self.layouts[rnd], self.plans[rnd]
-        if lay.kind == "row":
-            nrhs = W.shape[1]
-            rhs = torch.gather(W[cc["own"]], 1,
-                               perm[:, :, None].expand(-1, -1, nrhs))
-            KD = self.kd[rnd]
-            if hi:
-                rhs, K, L21 = rhs.double(), K.double(), L21.double()
-                KD = None if KD is None else KD.double()
-            if KD is not None:
-                y = block_lower_apply_masked(K, KD, rhs,
-                                             lay.chunk(plan.P)[0], self._psum)
-            else:
-                y = block_lower_apply(K, rhs, self._pack_bs)
-            upd = (L21 @ y).to(W.dtype)
-            if lay.border:
-                upd = coll.all_gather(upd, self._fgroup, dim=1)
-            y = y.to(W.dtype)
+        """One round's forward substitution on this rank's fronts, in every
+        layout: y = L11^-1 P rhs (masked over the column shards of K on a
+        row-sharded round with a diagonal-block stack) and the border
+        update L21 y, at W's dtype. A batch-sharded round then gathers y
+        and the update from every rank, a row-sharded border its update
+        rows; every rank stores the whole round's results in the
+        single-device order."""
+        K, _, L21, perm = self.factors[rnd]
+        lay, KD, g = self.layouts[rnd], self.kd[rnd], self._fgroup
+        nrhs = W.shape[1]
+        rhs = torch.gather(W[cc["own_l"]], 1,
+                           perm[:, :, None].expand(-1, -1, nrhs))
+        rhs, K, L21, KD = upcast(hi, rhs, K, L21, KD)
+        if KD is not None:
+            y = block_lower_apply_masked(K, KD, rhs,
+                                         lay.chunk(self.plans[rnd].P)[0],
+                                         self._psum)
         else:
-            y, upd = fwd_local(W, K, L21, perm, cc["own_l"], self._pack_bs,
-                               hi)
-            if lay.split:
-                y = coll.all_gather(y, self._fgroup)
-                upd = coll.all_gather(upd, self._fgroup)
+            y = block_lower_apply(K, rhs, self._pack_bs)
+        upd = (L21 @ y).to(W.dtype)
+        y = y.to(W.dtype)
+        if lay.split:
+            y, upd = coll.all_gather(y, g), coll.all_gather(upd, g)
+        elif lay.border:
+            upd = coll.all_gather(upd, g, dim=1)
         return fwd_store(W, y, upd, cc["own"], cc["border"])
 
     def _bwd(self, rnd: int, W, cc: dict, hi: bool):
-        """One round's backward substitution (layouts as in
-        ``_fwd``; a row-sharded round sums its U12 xb over the border
+        """One round's backward substitution x = U11^-1 (rhs - U12 xb)
+        (layouts as in ``_fwd``; a row-sharded border sums U12 xb over its
         shards)."""
-        K, U12, L21, perm = self.factors[rnd]
-        lay, plan = self.layouts[rnd], self.plans[rnd]
-        if lay.kind == "row":
-            rhs, xb = W[cc["own"]], W[cc["bor"]]
-            KD = self.kd[rnd]
-            if hi:
-                rhs, xb, K, U12 = (rhs.double(), xb.double(), K.double(),
-                                   U12.double())
-                KD = None if KD is None else KD.double()
-            if lay.border:
-                m0, m1 = lay.chunk(plan.M)
-                t = rhs - self._psum(U12 @ xb[:, m0:m1])
-            else:
-                t = rhs - U12 @ xb
-            if KD is not None:
-                x = block_upper_apply_masked(K, KD, t, lay.chunk(plan.P)[0],
-                                             self._psum)
-            else:
-                x = block_upper_apply(K, t, self._pack_bs)
-            return set_own(W, x.to(W.dtype), cc["own"])
-        x = bwd_local(W, K, U12, cc["own_l"], cc["bor_l"], self._pack_bs, hi)
+        K, U12, _, _ = self.factors[rnd]
+        lay, plan, KD = self.layouts[rnd], self.plans[rnd], self.kd[rnd]
+        rhs, xb = W[cc["own_l"]], W[cc["bor_l"]]
+        rhs, xb, K, U12, KD = upcast(hi, rhs, xb, K, U12, KD)
+        if lay.border:
+            m0, m1 = lay.chunk(plan.M)
+            t = rhs - self._psum(U12 @ xb[:, m0:m1])
+        else:
+            t = rhs - U12 @ xb
+        if KD is not None:
+            x = block_upper_apply_masked(K, KD, t, lay.chunk(plan.P)[0],
+                                         self._psum)
+        else:
+            x = block_upper_apply(K, t, self._pack_bs)
+        x = x.to(W.dtype)
         if lay.split:
             x = coll.all_gather(x, self._fgroup)
         return set_own(W, x, cc["own"])

@@ -11,10 +11,11 @@ Peak memory is one round's trimmed blocks plus the (n, nrhs) workspace;
 each preconditioner application costs two sequential passes over the
 factor files (disk-bandwidth bound).
 
-The per-front math mirrors the engine's packed layout exactly
-(mf_torch.pack_diag_inv / block_lower_apply / block_upper_apply): K is
-the pivot block with raw off-diagonal L/U panels and INVERTED bs-sized
-diagonal blocks; U12 = L11^-1 P A12; L21 = A21 U11^-1.
+Each front's substitutions are the engine's own
+(mf_torch.block_lower_apply / block_upper_apply, on float64 CPU tensors):
+this module reads nothing of the packed pivot-block layout itself, which
+only mf_torch's solve-side building blocks (and checkpoint's identity
+padding) know. U12 = L11^-1 P A12; L21 = A21 U11^-1.
 """
 
 from __future__ import annotations
@@ -24,34 +25,17 @@ import torch
 
 from ..utils import dbg, timed
 from .checkpoint import stored_dtype
+from .mf import equilibrate
+from .mf_torch import (TorchMultifrontal, block_lower_apply,
+                       block_upper_apply)
 
 
-def _lower_apply_packed(K: np.ndarray, rhs: np.ndarray, bs: int):
-    """y = L11^-1 rhs for one front's packed pivot factor K (p, p)."""
-    p = K.shape[0]
-    y = np.empty_like(rhs)
-    for o in range(0, p, bs):
-        T = min(bs, p - o)
-        t = rhs[o:o + T]
-        if o:
-            t = t - K[o:o + T, :o] @ y[:o]
-        KD = K[o:o + T, o:o + T]
-        y[o:o + T] = t + np.tril(KD, -1) @ t
-    return y
-
-
-def _upper_apply_packed(K: np.ndarray, rhs: np.ndarray, bs: int):
-    """x = U11^-1 rhs (packed layout as above)."""
-    p = K.shape[0]
-    x = np.empty_like(rhs)
-    for o in range(((p - 1) // bs) * bs, -1, -bs):
-        T = min(bs, p - o)
-        t = rhs[o:o + T]
-        if o + T < p:
-            t = t - K[o:o + T, o + T:] @ x[o + T:]
-        KD = K[o:o + T, o:o + T]
-        x[o:o + T] = np.triu(KD) @ t
-    return x
+def _front_apply(substitute, K: np.ndarray, rhs: np.ndarray, bs: int):
+    """``substitute`` (block_lower_apply or block_upper_apply) on one
+    front's packed pivot factor K (p, p) and rhs (p, nrhs), float64 on the
+    CPU; a float32 round file's K is upcast exactly."""
+    Kt = torch.from_numpy(np.asarray(K, dtype=np.float64))[None]
+    return substitute(Kt, torch.from_numpy(rhs)[None], bs)[0].numpy()
 
 
 class StreamSolver:
@@ -115,7 +99,8 @@ class StreamSolver:
             for f, K, U12, L21, perm in self._round_fronts(rnd, plan):
                 cells = np.asarray(f.cells)
                 own = cells[:f.p]
-                y = _lower_apply_packed(K, W[own][perm], self.bs)
+                y = _front_apply(block_lower_apply, K, W[own][perm],
+                                 self.bs)
                 W[own] = y
                 if f.n > f.p:
                     W[cells[f.p:]] -= L21 @ y
@@ -127,7 +112,7 @@ class StreamSolver:
                 rhs = W[own]
                 if f.n > f.p:
                     rhs = rhs - U12 @ W[cells[f.p:]]
-                W[own] = _upper_apply_packed(K, rhs, self.bs)
+                W[own] = _front_apply(block_upper_apply, K, rhs, self.bs)
         return W[:, 0] if single else W
 
 
@@ -142,9 +127,6 @@ def stream_solve(matrix, maps, sym, ckpt_dir: str, B: np.ndarray,
     ``_pack_bs`` and plan budget; its factor dtype is read from the round
     files. All three enter the checkpoint key. The solve runs on the host;
     no device is touched."""
-    from .mf import equilibrate
-    from .mf_torch import TorchMultifrontal
-
     fac_matrix, dr, dc = equilibrate(matrix)
     stored = stored_dtype(ckpt_dir)
     prec = torch.float32 if stored == np.float32 else torch.float64

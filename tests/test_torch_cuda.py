@@ -292,12 +292,12 @@ def test_hi_rounds_on_card(card, problem, monkeypatch):
     matrix, maps = problem
     monkeypatch.setattr(mf_torch, "HI_ROUND_MIN_P", 1)
     calls = []
-    real = mf_torch.fwd_local
+    real = mf_torch.upcast
 
-    def counted(W, *args, **kw):
-        calls.append((W.device.type, W.dtype, args[-1]))
-        return real(W, *args, **kw)
-    monkeypatch.setattr(mf_torch, "fwd_local", counted)
+    def counted(hi, rhs, *ts):
+        calls.append((rhs.device.type, rhs.dtype, hi))
+        return real(hi, rhs, *ts)
+    monkeypatch.setattr(mf_torch, "upcast", counted)
     B = np.random.default_rng(10).standard_normal((matrix.flat_len, 2))
     out = []
     for dev in (card, "cpu"):

@@ -187,16 +187,19 @@ def test_engine_border_waves(fixture_pair):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_fwd_round_matches_jax(fixture_pair, dtype):
     """The border subtraction sums each shared border cell's updates in
-    the order of the JAX scatter-add: fwd_local then fwd_store bit for bit
-    with mf_jax._fwd_round on a round with shared border cells. K is the
-    identity and each row of L21 has one entry, so y and L21 @ y are exact
-    in both packages and only the order of the border sums can differ
-    (reversing the waves does change the bits)."""
+    the order of the JAX scatter-add: the engine's forward round body
+    (TorchMultifrontal._fwd) bit for bit with mf_jax._fwd_round on a round
+    with shared border cells. K is the identity and each row of L21 has
+    one entry, so y and L21 @ y are exact in both packages and only the
+    order of the border sums can differ (reversing the waves does change
+    the bits)."""
     _, _, tf, _ = fixture_pair
-    eng = tf.engine
-    rnd = next(r for r, cc in enumerate(eng._consts)
-               if len(cc["border"][2]) > 1)
-    plan, cc = eng.plans[rnd], eng._consts[rnd]
+    eng = mf_torch.TorchMultifrontal(tf.sym, tf._fac_matrix, CPU,
+                                     factorize=False,
+                                     prec=getattr(torch, dtype))
+    rnd = next(r for r in range(len(eng.plans))
+               if len(eng._round_consts(r)["border"][2]) > 1)
+    plan, cc = eng.plans[rnd], eng._round_consts(rnd)
     B, P, M, nrhs = plan.B, plan.P, plan.M, 3
     rng = np.random.default_rng(11)
     W = rng.standard_normal((eng.flat_len + 1, nrhs)).astype(dtype)
@@ -212,13 +215,13 @@ def test_fwd_round_matches_jax(fixture_pair, dtype):
     want = mf_jax._fwd_round(jnp.asarray(W), *map(jnp.asarray, args), None,
                              jnp.asarray(plan.cells_own),
                              jnp.asarray(plan.cells_bor), bs=eng._pack_bs)
-    Kt, _, L21t, permt = map(torch.from_numpy, args)
+    factors = [(None,) * 4] * len(eng.plans)
+    factors[rnd] = tuple(map(torch.from_numpy, args))
+    eng.set_factors(factors)
 
     def fwd(border):
-        Wt = torch.from_numpy(W.copy())
-        y, upd = mf_torch.fwd_local(Wt, Kt, L21t, permt, cc["own"],
-                                    eng._pack_bs)
-        return mf_torch.fwd_store(Wt, y, upd, cc["own"], border)
+        return eng._fwd(rnd, torch.from_numpy(W.copy()),
+                        dict(cc, border=border), hi=False)
 
     got = fwd(cc["border"])
     n = eng.flat_len

@@ -32,7 +32,7 @@ from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf import (
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.mf_torch import (
     TorchMultifrontal)
 from nk_ocn_tracer_jacobian_precond_tpu_torch.solver.stream_solve import (
-    stream_solve)
+    StreamSolver, stream_solve)
 
 CPU = torch.device("cpu")
 
@@ -98,6 +98,22 @@ def test_stream_solve_from_factor_only_checkpoints(problem, monkeypatch):
     _check(matrix, fac, B, X, rel)
     x, r = stream_solve(matrix, maps, fac.sym, ck, B[:, 0], pack_bs=pack_bs)
     assert x.shape == (matrix.flat_len,) and r.max() <= 1e-10
+
+
+@pytest.mark.parametrize("nrhs", [1, 4], ids=lambda n: f"nrhs={n}")
+def test_stream_apply_equals_engine_apply(problem, nrhs):
+    """One unrefined StreamSolver.apply over the factor-only pass's round
+    files against the in-memory engine's solve of the same equilibrated
+    system at float64: the same factors, substituted front by front on the
+    host against batch by batch in the engine, agree to 1e-12 relative."""
+    matrix, maps, fac, ck, pack_bs = problem
+    eng = TorchMultifrontal(fac.sym, fac._fac_matrix, CPU, factorize=False,
+                            checkpoint_dir=ck)
+    solver = StreamSolver(eng._ckpt_for(fac._fac_matrix), fac.sym, eng.plans,
+                          pack_bs, eng.flat_len)
+    B = _rhs(matrix, 13, nrhs)
+    want = fac.engine.solve(B)
+    assert np.abs(solver.apply(B) - want).max() <= 1e-12 * np.abs(want).max()
 
 
 def test_stream_solve_rejects_incomplete_checkpoints(problem, tmp_path):
