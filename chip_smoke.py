@@ -125,12 +125,25 @@ its hand-written CUDA kernels on the way:
    computes none and gives the same solutions bit for bit; every residual
    <= 1e-10; before the first run, what chip_smoke has written so far
    (/proc/self/io's wchar) and this phase's planned writes stay under
-   WRITE_CAP_GB; the checkpoint directory is deleted.
+   WRITE_CAP_GB; the checkpoint directory is deleted;
+14. (run after phase 12, before 13) the solve's triangle kernel
+   (tri_block_apply) at the diagonal blocks of one sweep of phase 8's
+   centered and phase 12a's upwind3 gx3deep rounds, each round's blocks
+   strided in a random K: the first and last block of every round bit for
+   bit with the plain version, and a sweep's diagonal steps timed from a
+   cold L2 by the kernel, the tril / triu + matmul route it replaced and
+   the plain version, beside the bound, at 1 to 32 right-hand sides (the
+   width rule's crossover); alone: scripts/torch_tri_block_phase.py. Its
+   launches on the main path are counted around the refined solves of
+   phase 8 (the NK loop's 4-RHS solves and one 1-RHS solve) and of 12a
+   (one 1-RHS solve): one a diagonal step of every eager and captured
+   sweep, none a replay.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of kernel results (K1 and K3-f64 twice: the gx3 main path, and the mesh
 path of phase 11a; then a row per kernel and path of phase 12, with a
-"path" key), and as its last line
+"path" key; csr_matvec; tri_block_apply per configuration), and as its
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises: the script then exits non-zero without that line.
 
@@ -155,6 +168,7 @@ PKG = "nk_ocn_tracer_jacobian_precond_tpu_torch"
 PANEL_SOURCE = f"{PKG}/csrc/pivoted_panel.cu"
 ASM_SOURCE = f"{PKG}/csrc/ell_assemble.cu"
 MATVEC_SOURCE = f"{PKG}/csrc/csr_matvec.cu"
+TRI_SOURCE = f"{PKG}/csrc/tri_block_apply.cu"
 # def lines of pallas_pivoted_panel_df64 (K1), pallas_pivoted_panel (K2)
 # and pallas_ell_assemble (K3)
 PALLAS = "nk_ocn_tracer_jacobian_precond_tpu/solver/pallas_kernels.py"
@@ -527,9 +541,12 @@ def phase_parity(ck, device, work: Path, precision: str) -> None:
         if ck.LAUNCHES[k] == before[k]:
             raise AssertionError(f"engine parity {precision}: the kernel "
                                  f"run launched no {k}")
-    real = (ck.pivoted_panel, ck.ell_assemble)
-    ck.pivoted_panel, ck.ell_assemble = (ck.pivoted_panel_plain,
-                                         ck.ell_assemble_plain)
+    real = (ck.pivoted_panel, ck.ell_assemble, ck.tri_block_apply)
+
+    def tri_plain(KD, rhs, out, g=None, lower=True):
+        return out.copy_(ck.tri_block_apply_plain(KD, rhs, g, lower))
+    ck.pivoted_panel, ck.ell_assemble, ck.tri_block_apply = (
+        ck.pivoted_panel_plain, ck.ell_assemble_plain, tri_plain)
     try:
         launched = dict(ck.LAUNCHES)
         fp = MultifrontalFactorization(matrix, maps=maps, sym=fk.sym,
@@ -538,7 +555,7 @@ def phase_parity(ck, device, work: Path, precision: str) -> None:
             raise AssertionError("engine parity: the plain run launched "
                                  "a kernel")
     finally:
-        ck.pivoted_panel, ck.ell_assemble = real
+        ck.pivoted_panel, ck.ell_assemble, ck.tri_block_apply = real
     if fk.engine.prec != fp.engine.prec:
         raise AssertionError("engine parity: factor dtypes differ")
     bitwise = True
@@ -660,8 +677,17 @@ def expect_launches(launches: dict, plans, sfxs) -> None:
 
 def factor_launches(launches: dict) -> dict:
     """The launches of the factor path's kernels: the refiner's product
-    kernel runs in the solves (counting_solves checks it)."""
-    return {k: v for k, v in launches.items() if k != "csr_matvec_f64"}
+    kernel runs in the solves (counting_solves checks it), the triangle
+    kernel in every narrow block substitution, the solves' and the
+    factor's alike."""
+    return {k: v for k, v in launches.items() if k != "csr_matvec_f64"
+            and not k.startswith("tri_block_apply")}
+
+
+def sweep_diag_steps(eng) -> int:
+    """The diagonal steps of one forward-plus-backward sweep of ``eng``:
+    one a pack block of every round's P, each way."""
+    return 2 * sum(-(-p.P // eng._pack_bs) for p in eng.plans if p.P)
 
 
 class counting_solves:
@@ -669,7 +695,9 @@ class counting_solves:
     kernel's launches against the refiner's device residuals: ``check()``
     raises unless each residual launched the kernel once and nothing else
     did (a float64 Krylov cycle launches it for its products, so a solve
-    that took one fails the check). Returns the launches."""
+    that took one fails the check). Returns the launches. Around each
+    solve it also reads the triangle kernel's launches and the engine's
+    eager and captured sweeps (``tri_check()``)."""
 
     def __init__(self, ck):
         self.ck, self.stats = ck, []
@@ -679,15 +707,46 @@ class counting_solves:
             DeviceRefiner)
         self._cls, self._real = DeviceRefiner, DeviceRefiner.solve
         self._before = self.ck.LAUNCHES["csr_matvec_f64"]
-        real, stats = self._real, self.stats
+        real, stats, ck = self._real, self.stats, self.ck
 
         def solve(ref, B):
+            eng = ref.engine
+            key = f"tri_block_apply_{ck.SUFFIX[eng.prec]}"
+            tri0, sw0 = ck.LAUNCHES[key], dict(eng.sweep_counts)
             X = real(ref, B)
+            sw = {k: eng.sweep_counts[k] - sw0[k] for k in sw0}
             stats.append(dict(ref.stats, nrhs=1 if np.ndim(B) == 1
-                              else np.shape(B)[1]))
+                              else np.shape(B)[1],
+                              tri_launches=ck.LAUNCHES[key] - tri0,
+                              sweeps=sw, diag_steps=sweep_diag_steps(eng)))
             return X
         DeviceRefiner.solve = solve
         return self
+
+    def tri_check(self, what: str) -> dict:
+        """Raises unless every solve launched the triangle kernel once a
+        diagonal step of each eager and each captured sweep (a replay runs
+        no host code, so counts none); returns the launches, sweeps by
+        route and diagonal steps a sweep, summed over the solves."""
+        out = dict(launches=0, eager=0, captured=0, replayed=0,
+                   diag_steps=0)
+        for st in self.stats:
+            sw = st["sweeps"]
+            want = st["diag_steps"] * (sw["eager"] + sw["captured"])
+            if st["tri_launches"] != want:
+                raise AssertionError(
+                    f"{what}: tri_block_apply launched "
+                    f"{st['tri_launches']} times in a solve of "
+                    f"{st['nrhs']} RHS with sweeps {sw}, want {want} "
+                    f"({st['diag_steps']} diagonal steps a sweep)")
+            out["launches"] += st["tri_launches"]
+            for k in sw:
+                out[k] += sw[k]
+            out["diag_steps"] = st["diag_steps"]
+        if out["launches"] == 0:
+            raise AssertionError(f"{what}: no tri_block_apply launch over "
+                                 f"{len(self.stats)} solves")
+        return out
 
     def __exit__(self, *exc):
         self._cls.solve = self._real
@@ -1371,6 +1430,8 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         fac.solve(B[:, 0])
     matvec_launches = {4: solves4.check("phase 8 NK loop"),
                        1: solves1.check("phase 8 1-RHS solve")}
+    tri_launches = {4: solves4.tri_check("phase 8 NK loop"),
+                    1: solves1.tri_check("phase 8 1-RHS solve")}
     if {st["nrhs"] for st in solves4.stats} != {4} \
             or solves1.stats[-1]["best_rel"] > 1e-10:
         raise AssertionError(f"phase 8 solves: {solves4.stats} "
@@ -1379,6 +1440,11 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         f"loop's {len(solves4.stats)} 4-RHS refined solves, "
         f"{matvec_launches[1]} over one 1-RHS solve, each the refiner's "
         f"device residuals")
+    say("phase 8 tri_block_apply launches (counted around the solves): "
+        + "; ".join(f"{n} RHS {t['launches']} over {t['eager']} eager, "
+                    f"{t['captured']} captured and {t['replayed']} replayed "
+                    f"sweeps of {t['diag_steps']} diagonal steps"
+                    for n, t in tri_launches.items()))
     for r in res.rows:
         split = r["refactor_split"]
         lk = per_refactor[r["it"] - 1]
@@ -1468,7 +1534,8 @@ def phase_nk_loop(ck, device, work: Path, card: str) -> dict:
         round_peak_over_plan_max=max(over),
         round_peak_gb_max=max(peaks) / gb, kernels_per_refactor=kern,
         breakdown=breakdown, summary=nk_loop.summary(res, 4, "gx3deep"),
-        csr_matvec=csr_mv)
+        csr_matvec=csr_mv, sweep_rounds=[(p.B, p.P) for p in plans],
+        pack_bs=fac.engine._pack_bs, tri_launches=tri_launches)
     say(f"phase 8 gx3deep rounds (B, P, N): {rounds}")
     say(f"phase 8 one-time: gen_A {t_gen:.2f} s, symbolic "
         f"{res.symbolic_s:.2f} s, update plan {res.update_plan_s:.2f} s, "
@@ -2089,8 +2156,14 @@ def phase_upwind3(ck, device, work: Path, card: str) -> dict:
     # (a) f64, single device
     a = reference_solve(ck, device, mat, tracer, vars_arg, "f64")
     fac = a["fac"]
-    plans = fac.engine.plans
+    plans, pack_bs = fac.engine.plans, fac.engine._pack_bs
     a.update(gen_a_s=t_gen, **steady(fac, a["A"], a["Bm"]))
+    # the triangle kernel on the main path: one 1-RHS solve, as the apply
+    # cell's requests
+    with counting_solves(ck) as solves1:
+        fac.solve(a["Bm"][:, 0])
+    solves1.check("phase 12a 1-RHS solve")
+    a["tri_launches"] = solves1.tri_check("phase 12a 1-RHS solve")
     a["breakdown"] = stage_breakdown(fac, device)
     kern64 = refactor_kernel_ms(ck, device, plans, fac._fac_matrix.nzval)
     sym, A, Bm = fac.sym, a["A"], a["Bm"]
@@ -2246,8 +2319,11 @@ def phase_upwind3(ck, device, work: Path, card: str) -> dict:
         f"bound {c['k1_per_factor']['bound_ms']:.4f}, lu_factor_ex "
         f"{c['k1_per_factor']['library_ms']:.3f}, plain "
         f"{c['k1_per_factor']['plain_ms']:.1f} [{card}]")
+    say(f"phase 12a tri_block_apply launches over one 1-RHS solve (counted "
+        f"around it): {a['tri_launches']} [{card}]")
     stats = dict(card=card, a=brief(a), b=brief(b), c=c, kern64=kern64,
-                 kern32=kern32)
+                 kern32=kern32, sweep_rounds=[(p.B, p.P) for p in plans],
+                 pack_bs=pack_bs, tri_launches=a["tri_launches"])
     say("phase 12a-c upwind3 gx3deep: " + json.dumps(stats, default=str))
     return stats
 
@@ -2410,6 +2486,171 @@ def phase12_kernel_rows(up: dict, coupled: dict, nk32: dict) -> list:
                         "ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by")}))
     return rows
+
+
+# --------------------------------------------------------------------------
+# phase 14: the diagonal step of the solve's block substitutions
+# --------------------------------------------------------------------------
+
+TRI_WIDTHS = (1, 4, 8, 16, 32)
+
+
+def cold_ms(fn, flush, reps: int, graph: bool = True) -> float:
+    """Median device time of fn() in ms, each call timed alone by CUDA
+    events right after ``flush`` (a buffer larger than the card's 50 MB L2
+    cache) is written, as a sweep finds a round's factors: in device
+    memory, not in L2. With ``graph`` fn's launches are captured into a
+    CUDA graph once and each call replays it, as the sweep runs them, so
+    the host's launch overhead stays out of the time. One warm-up call
+    first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    call = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        call = g.replay
+        call()
+        torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in marks]))
+
+
+def phase_tri_block(ck, device, configs: dict, card: str) -> dict:
+    """The triangle kernel (tri_block_apply, R2) at the diagonal blocks of
+    one sweep of each configuration: ``configs`` maps a name to its rounds
+    [(B, P)] and pack block. Each round's blocks sit strided in a random
+    row-major (B, P, P) K, as in the engine; its forward
+    steps (t + stril(KD, -1) t, g given past the first block) and backward
+    steps (triu(KD) t) are timed together, from a cold L2 and replayed as
+    a CUDA graph (as the sweep runs them), by three routes: the kernel,
+    the library route it replaced (rhs - g, torch.tril / torch.triu and a
+    matrix product) and the plain version (1 RHS only), at 1, 4, 8, 16
+    and 32 right-hand sides for the kernel and the library. The first and
+    last block of every round is held bit for bit to the plain version at
+    1 and 4 RHS. The bound: each block's triangle read once, and t, g and
+    the result, at 3.35 TB/s. Returns per configuration the sweep's ms by
+    route and width (the R2 rows of the kernel table and the width rule's
+    crossover: mf_torch.TRI_KERNEL_MAX_RHS)."""
+    import torch
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import mf_torch
+    dt = torch.float64
+    item = 8
+    flush = torch.empty(32 * 2**20, dtype=dt, device=device)   # 256 MB
+    gen = torch.Generator(device=device).manual_seed(14)
+    out = {}
+    for name, (rounds, bs) in configs.items():
+        tot = {w: dict(kernel=0.0, library=0.0) for w in TRI_WIDTHS}
+        plain_ms = bound_ms = 0.0
+        blocks = checked = 0
+        per_round = []
+        for B, P in rounds:
+            if P == 0:
+                continue
+            K = torch.randn((B, P, P), dtype=dt, device=device,
+                            generator=gen) / math.sqrt(P)
+            steps = [(o, min(bs, P - o)) for o in range(0, P, bs)]
+            blocks += 2 * len(steps)
+            for w in TRI_WIDTHS:
+                rhs = torch.randn((B, P, w), dtype=dt, device=device,
+                                  generator=gen)
+                g = torch.randn((B, P, w), dtype=dt, device=device,
+                                generator=gen)
+                y = torch.empty_like(rhs)
+                # the forward step of block o takes g past the first block,
+                # the backward step before the last
+                work = [(K[:, o:o + T, o:o + T], rhs[:, o:o + T],
+                         y[:, o:o + T], g[:, o:o + T].contiguous()
+                         if o else None,
+                         g[:, o:o + T].contiguous() if o + T < P else None,
+                         T) for o, T in steps]
+
+                def kernel():
+                    for KD, r, yy, gl, gu, _ in work:
+                        ck.tri_block_apply(KD, r, yy, gl, True)
+                    for KD, r, yy, gl, gu, _ in reversed(work):
+                        ck.tri_block_apply(KD, r, yy, gu, False)
+
+                def library():
+                    for KD, r, yy, gl, gu, _ in work:
+                        t = r if gl is None else r - gl
+                        t + torch.tril(KD, -1) @ t
+                    for KD, r, yy, gl, gu, _ in reversed(work):
+                        t = r if gu is None else r - gu
+                        torch.triu(KD) @ t
+
+                def plain():
+                    for KD, r, yy, gl, gu, _ in work:
+                        ck.tri_block_apply_plain(KD, r, gl, True)
+                    for KD, r, yy, gl, gu, _ in reversed(work):
+                        ck.tri_block_apply_plain(KD, r, gu, False)
+
+                k_ms = cold_ms(kernel, flush, 5)
+                l_ms = cold_ms(library, flush, 5)
+                tot[w]["kernel"] += k_ms
+                tot[w]["library"] += l_ms
+                if w == 1:
+                    plain_ms += cold_ms(plain, flush, 1, graph=False)
+                    r_bound = 0.0
+                    for KD, r, yy, gl, gu, T in work:
+                        # the two triangles; rhs and the result each way,
+                        # and g where the step takes one
+                        vecs = 4 + (gl is not None) + (gu is not None)
+                        nb = (B * T * (T - 1) // 2 + B * T * (T + 1) // 2
+                              + vecs * B * T * w) * item
+                        r_bound += nb / HBM_BPS * 1e3
+                    bound_ms += r_bound
+                    per_round.append(dict(B=B, P=P, steps=2 * len(steps),
+                                          kernel_ms=k_ms,
+                                          library_ms=l_ms,
+                                          bound_ms=r_bound))
+                if w in (1, 4):
+                    for KD, r, yy, gl, gu, T in work[:1] + work[1:][-1:]:
+                        for lower, gg in ((True, gl), (False, gu)):
+                            got = ck.tri_block_apply(
+                                KD, r, torch.empty_like(r), gg, lower)
+                            want = ck.tri_block_apply_plain(KD, r, gg, lower)
+                            if not torch.equal(got, want):
+                                raise AssertionError(
+                                    f"phase 14 {name}: tri_block_apply "
+                                    f"(B {B}, T {T}, nrhs {w}, lower "
+                                    f"{lower}) differs from its plain "
+                                    f"version")
+                            checked += 1
+                del rhs, g, y, work
+            del K
+            torch.cuda.empty_cache()
+        cross = [w for w in TRI_WIDTHS
+                 if tot[w]["kernel"] > tot[w]["library"]]
+        out[name] = dict(pack_bs=bs, blocks=blocks, checked=checked,
+                         ms=tot[1]["kernel"], bound_ms=bound_ms,
+                         plain_ms=plain_ms, library_ms=tot[1]["library"],
+                         widths={w: tot[w] for w in TRI_WIDTHS},
+                         library_faster_at=cross, rounds=per_round)
+        say(f"phase 14 tri_block_apply {name} (pack block {bs}, {blocks} "
+            f"diagonal steps a sweep, {checked} bitwise equal to the plain "
+            f"version): a 1-RHS sweep's diagonal steps kernel "
+            f"{tot[1]['kernel']:.4f} ms, bound {bound_ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms, tril / triu + matmul "
+            f"{tot[1]['library']:.4f} ms; by width (kernel / library ms) "
+            + ", ".join(f"{w}: {tot[w]['kernel']:.4f} / "
+                        f"{tot[w]['library']:.4f}" for w in TRI_WIDTHS)
+            + f"; the library faster at {cross or 'no width'} (the rule's "
+            f"threshold {mf_torch.TRI_KERNEL_MAX_RHS}) [{card}]")
+    del flush
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2624,6 +2865,17 @@ def main() -> int:
         nk32 = phase_nk_loop_f32(ck, device, work, card)
         say(f"phase 12 in all: {time.perf_counter() - t0:.1f} s")
 
+        # phase 14: the triangle kernel at both gx3deep configurations'
+        # sweeps (phase 8's centered rounds, phase 12a's upwind3 rounds)
+        tri = phase_tri_block(ck, device, {
+            "gx3deep centered leaf 16": (deep_stats["sweep_rounds"],
+                                         deep_stats["pack_bs"]),
+            "upwind3 gx3deep leaf 32": (up["sweep_rounds"], up["pack_bs"])},
+            card)
+        tri_launches = {"gx3deep centered leaf 16":
+                        deep_stats["tri_launches"][1],
+                        "upwind3 gx3deep leaf 32": up["tri_launches"]}
+
         # phase 13: the distributed runner at gx3, then its resume, in a
         # process of its own: release what this one caches on the card
         torch.cuda.empty_cache()
@@ -2670,6 +2922,21 @@ def main() -> int:
             **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
                                  "bound_ms", "residual_ms",
                                  "scipy_bitwise")}))
+    # the solve's diagonal step, which replaces no Pallas kernel: ms a
+    # 1-RHS sweep of each configuration's diagonal blocks; its launches are
+    # those counted around one 1-RHS solve on the main path (phases 8 and
+    # 12a: one a diagonal step of each eager and captured sweep)
+    for path, r in tri.items():
+        tl = tri_launches[path]
+        kernels.append(dict(
+            name="tri_block_apply_f64", route="cuda", source=TRI_SOURCE,
+            replaces=None,
+            path=f"{path}, a 1-RHS sweep's diagonal steps; launches over one "
+                 f"1-RHS solve ({tl['eager']} eager, {tl['captured']} "
+                 f"captured, {tl['replayed']} replayed sweeps)",
+            launches=tl["launches"], max_abs_err=0.0, bound_by="bytes",
+            **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                 "bound_ms")}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -14,15 +14,19 @@ JAX package (``solver/pallas_kernels.py``), each at the factor dtype:
   ``pallas_ell_assemble`` and the rest of ``mf_jax._assemble``: front
   assembly with its spill entries and identity padding (K3, both dtypes).
 
-A fourth carries the solve's refinement and replaces no Pallas kernel (the
-JAX refiner takes its residuals on the host):
+Two carry the solve and replace no Pallas kernel:
 
 * ``csr_matvec`` (``csrc/csr_matvec.cu``): the refiner's float64 product
   A x from its ELL copy of the matrix, summed in CSR order as scipy's CSR
-  product sums it, so b minus it is scipy's ``B - A @ X``.
+  product sums it, so b minus it is scipy's ``B - A @ X`` (the JAX
+  refiner takes its residuals on the host);
+* ``tri_block_apply`` (``csrc/tri_block_apply.cu``, both dtypes): the
+  diagonal step of the block substitutions, each packed diagonal block's
+  triangle applied as it is stored (the JAX package forms ``jnp.tril`` /
+  ``jnp.triu`` copies and multiplies).
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. Both dispatch on the dtype
+tensors it launches the kernel or raises. Each dispatches on the dtype
 (float32 or float64; any other raises), but ``csr_matvec``, which takes
 float64 only. The kernels are compiled with
 ``nvcc`` into ``build/torch_kernels/<hash of the sources>/`` at the first
@@ -45,7 +49,8 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("pivoted_panel.cu", "ell_assemble.cu", "csr_matvec.cu")
+SOURCES = ("pivoted_panel.cu", "ell_assemble.cu", "csr_matvec.cu",
+           "tri_block_apply.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # --fmad=false: the kernels fuse a multiply-add only where the source calls
 # fma(), as their plain versions do, so the two agree bit for bit.
@@ -55,7 +60,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 LAUNCHES = {"pivoted_panel_f64": 0, "pivoted_panel_f32": 0,
             "ell_assemble_f64": 0, "ell_assemble_f32": 0,
-            "csr_matvec_f64": 0}
+            "csr_matvec_f64": 0,
+            "tri_block_apply_f64": 0, "tri_block_apply_f32": 0}
 SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 BUILD_LOG = ""          # ptxas' register / shared-memory report of the build
 
@@ -114,6 +120,11 @@ def build() -> ctypes.CDLL:
                            _VP]
         lib.nk_csr_matvec_f64.restype = ctypes.c_int
         lib.nk_csr_matvec_f64.argtypes = [_VP] * 4 + [_I64] * 3 + [_VP]
+        for sfx in SUFFIX.values():
+            fn = getattr(lib, f"nk_tri_block_apply_{sfx}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([_VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP]
+                           + [_I64] * 5 + [ctypes.c_int, _VP])
         _lib = lib
         return lib
 
@@ -517,3 +528,92 @@ def csr_matvec(col, val, x) -> torch.Tensor:
     LAUNCHES["csr_matvec_f64"] += 1
     return y
 
+
+
+# --------------------------------------------------------------------------
+# the diagonal step of the block substitutions
+# --------------------------------------------------------------------------
+
+def tri_group_width(T: int) -> int:
+    """The lanes that share one row's sum in csrc/tri_block_apply.cu: the
+    least power of two >= T, at most 32 (a warp)."""
+    return min(32, 1 << max(0, T - 1).bit_length())
+
+
+def tri_block_apply_plain(KD, rhs, g=None, lower: bool = True):
+    """t + stril(KD, -1) t (``lower``) or triu(KD) t, t = rhs - g (rhs
+    where g is None), for KD (B, T, T) and rhs (B, T, nrhs), summed in the
+    kernel's order: with w = tri_group_width(T), each row's products of
+    the entries k = l (mod w) summed from zero in ascending k for each
+    lane l, then the lanes' sums pairwise, first l with l + w / 2, then
+    with l + w / 4, down to 1. Entries outside the triangle are passed
+    over, not added as zeros."""
+    t = rhs if g is None else rhs - g
+    B, T, nrhs = t.shape
+    w = tri_group_width(T)
+    i = torch.arange(T, device=t.device)
+    acc = t.new_zeros((B, T, w, nrhs))
+    for c0 in range(0, T, w):
+        k = torch.arange(c0, min(c0 + w, T), device=t.device)
+        keep = (k[None, :] < i[:, None]) if lower else (k[None, :]
+                                                         >= i[:, None])
+        part = acc[:, :, :len(k)]
+        prod = KD[:, :, c0:c0 + len(k), None] * t[:, None, c0:c0 + len(k)]
+        acc[:, :, :len(k)] = torch.where(keep[None, :, :, None],
+                                         part + prod, part)
+    while w > 1:
+        w //= 2
+        acc = acc[:, :, :w] + acc[:, :, w:]
+    s = acc[:, :, 0]
+    return t + s if lower else s
+
+
+def tri_block_apply(KD, rhs, out, g=None, lower: bool = True):
+    """The diagonal step of a block substitution into ``out`` (B, T, nrhs):
+    out = t + stril(KD, -1) t (``lower``) or out = triu(KD) t, with t =
+    rhs - g (rhs where g is None). KD (B, T, T) is a diagonal block of the
+    packed pivot factor read in place (row-major: a unit column stride,
+    as mf_torch.pack_diag_inv writes K), rhs and out any (B, T, nrhs)
+    views with unit column stride, g None or (B, T, nrhs) contiguous; all
+    of one dtype (float64 or float32), and out overlapping none of the
+    others. Returns out. CPU tensors take the plain version; CUDA tensors
+    launch csrc/tri_block_apply.cu (T up to 4096), bit for bit with it."""
+    if KD.dim() != 3 or rhs.dim() != 3:
+        raise ValueError(f"KD must be (B, T, T) and rhs (B, T, nrhs), got "
+                         f"{tuple(KD.shape)} and {tuple(rhs.shape)}")
+    B, T, nrhs = rhs.shape
+    sfx = _float_dtype(rhs, "rhs")
+    for name, t, shape in (("KD", KD, (B, T, T)), ("out", out, (B, T, nrhs)),
+                           ("g", g, (B, T, nrhs))):
+        if t is None:
+            continue
+        if t.dtype != rhs.dtype:
+            raise TypeError(f"{name}: expected {rhs.dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    args = (KD, rhs, out) if g is None else (KD, rhs, out, g)
+    if _route(*args) == "cpu":
+        return out.copy_(tri_block_apply_plain(KD, rhs, g, lower))
+    for name, t in (("rhs", rhs), ("out", out), ("KD", KD)):
+        if t.stride(2) != 1 and t.shape[2] > 1:
+            raise ValueError(f"{name}: must have unit stride along its last "
+                             f"axis")
+    if g is not None and not g.is_contiguous():
+        raise ValueError("g: must be contiguous")
+    if T > 4096:
+        raise ValueError(f"tri_block_apply takes blocks up to T = 4096, got "
+                         f"{T}")
+    if B * T * nrhs == 0:
+        return out
+    lib = build()
+    err = getattr(lib, f"nk_tri_block_apply_{sfx}")(
+        out.data_ptr(), out.stride(0), out.stride(1), rhs.data_ptr(),
+        rhs.stride(0), rhs.stride(1), None if g is None else g.data_ptr(),
+        KD.data_ptr(), KD.stride(0), KD.stride(1), B, T, nrhs,
+        int(lower), _stream(rhs.device))
+    if err:
+        raise RuntimeError(f"tri_block_apply_{sfx} kernel launch failed "
+                           f"(B={B}, T={T}, nrhs={nrhs}): CUDA error {err}")
+    LAUNCHES[f"tri_block_apply_{sfx}"] += 1
+    return out

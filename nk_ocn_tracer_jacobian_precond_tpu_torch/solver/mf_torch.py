@@ -88,6 +88,21 @@ PANEL = 128
 # tree-top rounds, and their sequential block chains would otherwise
 # accumulate eps32 error on top of the factors' own rounding
 HI_ROUND_MIN_P = 4096
+# on a card, right-hand sides of at most this many columns take the
+# diagonal step of the block substitutions through the triangle kernel,
+# which reads each packed diagonal block's triangle in place; wider ones
+# are GEMM-shaped and take tril / triu and a matrix product, whose copy of
+# the block their columns amortise. A sweep's diagonal steps on an H100
+# (chip_smoke phase 14, the two benchmark configurations, centered /
+# upwind3): at 8 columns the kernel 3.48 / 5.79 ms, the library route
+# 6.65 / 6.54; at 16 the kernel 5.69 / 7.23, the library 6.73 / 6.52.
+# The traffic's own widths are 1 (a request) and 4 (the NK loop); no
+# traffic sends 9 to 16 columns, so the crossover between 8 and 16 was
+# measured on the sweep's shapes only, not on the one code it decides:
+# the factor's U12 at fronts with M in that range. On the CPU every width
+# takes the library route (the plain version, an emulation of the
+# kernel's order, is ~2x slower there).
+TRI_KERNEL_MAX_RHS = 8
 NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
@@ -254,7 +269,8 @@ def partial_factor(F, P: int, p_arr, tau: float = 0.0,
 # solve-side building blocks
 # --------------------------------------------------------------------------
 # pack_diag_inv writes the packed pivot-block layout; the block
-# substitutions below are its only readers.
+# substitutions below are its only readers (their diagonal step hands each
+# diagonal block, as stored, to cuda_kernels.tri_block_apply).
 
 def set_own(W, vals, cells_own):
     """W[cells_own] = vals (B, P, nrhs), in place (the scatter form); pad
@@ -300,7 +316,9 @@ def pack_diag_inv(LU, bs: int = PANEL):
     keep the raw L and U values. The layout the block substitutions read."""
     B, Pdim, _ = LU.shape
     with STAGES.stage("pack"):
-        out = LU.clone()
+        # row-major whatever LU's layout (the library LU of the tree-top
+        # rounds is column-major): the triangle kernel reads rows
+        out = LU.clone(memory_format=torch.contiguous_format)
         for o in range(0, Pdim, bs):
             T = min(bs, Pdim - o)
             Ti = LU[:, o:o + T, o:o + T]
@@ -313,34 +331,51 @@ def pack_diag_inv(LU, bs: int = PANEL):
     return out
 
 
+def kernel_step(rhs) -> bool:
+    """Whether a diagonal step on ``rhs`` takes the triangle kernel: a
+    CUDA tensor of at most TRI_KERNEL_MAX_RHS columns."""
+    return rhs.is_cuda and rhs.shape[-1] <= TRI_KERNEL_MAX_RHS
+
+
+def diag_step(KD, rhs, out, g, lower: bool):
+    """The diagonal step of a block substitution, into ``out``: with t =
+    rhs - g (rhs where g is None), out = t + stril(KD, -1) t (``lower``)
+    or triu(KD) t, KD a diagonal block of the packed layout as stored.
+    Where ``kernel_step`` says so it takes the triangle kernel
+    (cuda_kernels.tri_block_apply), else tril / triu and a matrix
+    product. Returns out."""
+    if kernel_step(rhs):
+        return ck.tri_block_apply(KD, rhs, out, g, lower)
+    t = rhs if g is None else rhs - g
+    return out.copy_(t + torch.tril(KD, -1) @ t if lower
+                     else torch.triu(KD) @ t)
+
+
 def block_lower_apply(K, rhs, bs: int = PANEL):
     """y = L11^-1 rhs by block forward substitution; K in the
     pack_diag_inv layout (only its leading (P, P) block is read), rhs
     (B, P, nrhs)."""
     Pdim = rhs.shape[1]
-    ys = []
+    y = rhs.new_empty(rhs.shape)
     for o in range(0, Pdim, bs):
         T = min(bs, Pdim - o)
-        t = rhs[:, o:o + T]
-        if o:
-            t = t - K[:, o:o + T, :o] @ torch.cat(ys, dim=1)
-        KD = K[:, o:o + T, o:o + T]
-        ys.append(t + torch.tril(KD, -1) @ t)
-    return torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+        g = K[:, o:o + T, :o] @ y[:, :o] if o else None
+        diag_step(K[:, o:o + T, o:o + T], rhs[:, o:o + T], y[:, o:o + T], g,
+                  lower=True)
+    return y
 
 
 def block_upper_apply(K, rhs, bs: int = PANEL):
     """x = U11^-1 rhs by block backward substitution (layout as above)."""
     Pdim = rhs.shape[1]
-    xs = []
+    x = rhs.new_empty(rhs.shape)
     for o in reversed(range(0, Pdim, bs)):
         T = min(bs, Pdim - o)
-        t = rhs[:, o:o + T]
-        if xs:
-            t = t - K[:, o:o + T, o + T:Pdim] @ torch.cat(xs, dim=1)
-        KD = K[:, o:o + T, o:o + T]
-        xs.insert(0, torch.triu(KD) @ t)
-    return torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
+        g = K[:, o:o + T, o + T:Pdim] @ x[:, o + T:] if o + T < Pdim \
+            else None
+        diag_step(K[:, o:o + T, o:o + T], rhs[:, o:o + T], x[:, o:o + T], g,
+                  lower=False)
+    return x
 
 
 def block_upper_apply_right(K, rhs, bs: int = PANEL):
@@ -377,10 +412,8 @@ def block_lower_apply_masked(K, KD, rhs, c0: int, reduce):
     Kc = K.shape[2]
     y = torch.zeros_like(rhs)
     for i, o in enumerate(range(0, rhs.shape[1], bs)):
-        t = rhs[:, o:o + bs] - reduce(K[:, o:o + bs, :]
-                                      @ y[:, c0:c0 + Kc])
-        t = t + torch.tril(KD[:, i], -1) @ t
-        y[:, o:o + bs] = t
+        g = reduce(K[:, o:o + bs, :] @ y[:, c0:c0 + Kc])
+        diag_step(KD[:, i], rhs[:, o:o + bs], y[:, o:o + bs], g, lower=True)
     return y
 
 
@@ -391,9 +424,9 @@ def block_upper_apply_masked(K, KD, rhs, c0: int, reduce):
     x = torch.zeros_like(rhs)
     for i in reversed(range(rhs.shape[1] // bs)):
         o = i * bs
-        t = rhs[:, o:o + bs] - reduce(K[:, o:o + bs, :]
-                                      @ x[:, c0:c0 + Kc])
-        x[:, o:o + bs] = torch.triu(KD[:, i]) @ t
+        g = reduce(K[:, o:o + bs, :] @ x[:, c0:c0 + Kc])
+        diag_step(KD[:, i], rhs[:, o:o + bs], x[:, o:o + bs], g,
+                  lower=False)
     return x
 
 

@@ -17,9 +17,11 @@ preconditioner applications (the refiner's ``host_applies`` + ``cycles``).
 The sweeps' routes: the engine's ``sweep_counts`` after each seed's
 requests, the ``route`` of each ``nk.engine.sweep`` of one more request
 (profiled with its ranges' arguments) and the host's launch calls inside
-each, and the device operations and launch calls of one sweep by the
-eager body (``_sweep``) against one by the engine's own route
-(``solve_workspace``: a graph launch and two copies once it replays).
+each, and the device operations, launch calls and triangle-kernel
+launches (``LAUNCHES["tri_block_apply_<dtype>"]``, one a diagonal block of
+the substitutions) of one sweep by the eager body (``_sweep``) against one
+by the engine's own route (``solve_workspace``: a graph launch and two
+copies once it replays, and no host code), beside ``sweep_counts``.
 
 With ``--cost N``: N requests with every span on and N with every span
 the no-op, alternated one by one, first under one profiler, then without
@@ -100,9 +102,14 @@ def sweep_routes(request, seed: int, index: int, acts) -> list:
 def sweep_ops(eng, nrhs: int, dev, acts) -> dict:
     """Device operations and host launch calls of one sweep of ``nrhs``
     right-hand sides: the eager body against the engine's own route,
-    each alone under a profiler."""
+    each alone under a profiler, with the triangle kernel's launches
+    (``LAUNCHES["tri_block_apply_<dtype>"]``) counted on the host around
+    each: one a diagonal block on the eager body, none on a replay."""
     import torch
     from nk_ocn_tracer_jacobian_precond_tpu_torch.drivers import profile
+    from nk_ocn_tracer_jacobian_precond_tpu_torch.solver import (
+        cuda_kernels as ck)
+    key = f"tri_block_apply_{ck.SUFFIX[eng.prec]}"
     W = torch.zeros((eng.flat_len + 1, nrhs), dtype=eng.prec, device=dev)
     W[:eng.flat_len] = 1.0
     out = {}
@@ -110,13 +117,15 @@ def sweep_ops(eng, nrhs: int, dev, acts) -> dict:
         x = W.clone()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        before = ck.LAUNCHES[key]
         with torch.profiler.profile(activities=acts) as prof:
             fn(x)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         events = list(prof.profiler.kineto_results.events())
         out[name] = dict(device_ops=len(profile.timeline(events)[1]),
-                         launch_calls=_launch_calls(events))
+                         launch_calls=_launch_calls(events),
+                         tri_block_launches=ck.LAUNCHES[key] - before)
     return out
 
 
@@ -226,8 +235,9 @@ def main(argv=None) -> int:
         log(f"#   sweep_counts {row['sweep_counts']}; one more request's "
             f"sweeps (route, launch calls): {row['sweep_routes']}")
     out["sweep_ops"] = sweep_ops(fac.engine, nrhs, dev, acts)
-    log(f"# one sweep of {nrhs} rhs, device operations and launch calls: "
-        f"{out['sweep_ops']} [{card}]")
+    log(f"# one sweep of {nrhs} rhs, device operations, launch calls and "
+        f"tri_block_apply launches: {out['sweep_ops']}; sweep_counts "
+        f"{dict(fac.engine.sweep_counts)} [{card}]")
     if args.cost:
         seed = int(args.seeds.split(",")[0])
         for traced in (True, False):

@@ -643,3 +643,95 @@ def test_profiler_records_the_replayed_kernels(card, problem):
     assert ops["eager_graph_launches"] == 0
     assert ops["replay_graph_launches"] == 1
     assert ops["replay"] == ops["eager"] + 2, ops
+
+
+# the diagonal blocks of the sweep's substitutions: B whole fronts of the
+# low rounds or one block of the top rounds; T up to the pack block 1024,
+# and a ragged last block (P = 1300 at pack block 512 leaves T = 276)
+TRI_T = [1, 31, 128, 512, 1024, 276]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
+@pytest.mark.parametrize("T", TRI_T)
+def test_tri_block_kernel_matches_plain(card, dtype, lower, T):
+    """The triangle kernel bit for bit against its plain version, on a
+    strided diagonal block inside a larger row-major K, from a strided
+    slice of the right-hand sides into a slice of a larger output (the
+    rest of which it leaves alone), at B = 1 and 37, 1, 4 and 16 columns,
+    with and without g; a column-major block is refused."""
+    rng = np.random.default_rng(T)
+    key = f"tri_block_apply_{ck.SUFFIX[dtype]}"
+    for B in (1, 37):
+        P = T + 24
+        K = torch.from_numpy(rng.standard_normal((B, P, P))).to(card, dtype)
+        KD = K[:, 16:16 + T, 16:16 + T]
+        if T > 1:
+            with pytest.raises(ValueError, match="KD: must have unit"):
+                ck.tri_block_apply(KD.transpose(1, 2), K[:, :T, :1],
+                                   torch.empty_like(K[:, :T, :1]))
+        for nrhs in (1, 4, 16):
+            W = torch.from_numpy(rng.standard_normal((B, P, nrhs))).to(
+                card, dtype)
+            rhs = W[:, 8:8 + T]
+            g = torch.from_numpy(rng.standard_normal((B, T, nrhs))).to(
+                card, dtype)
+            for gg in (None, g):
+                big = torch.full((B, P, nrhs), 7.0, dtype=dtype, device=card)
+                before = ck.LAUNCHES[key]
+                out = ck.tri_block_apply(KD, rhs, big[:, 4:4 + T], gg, lower)
+                plain = ck.tri_block_apply_plain(KD, rhs, gg, lower)
+                torch.cuda.synchronize(card)
+                assert ck.LAUNCHES[key] == before + 1
+                assert torch.equal(out, plain), (B, nrhs, gg is None)
+                assert (big[:, :4] == 7.0).all()
+                assert (big[:, 4 + T:] == 7.0).all()
+
+
+def _diag_blocks(eng) -> int:
+    """The diagonal blocks one sweep's substitutions step through, forward
+    and backward."""
+    return 2 * sum(-(-p.P // eng._pack_bs) for p in eng.plans if p.P)
+
+
+@pytest.mark.cuda
+def test_sweep_graph_replays_the_triangle_kernel(card, problem):
+    """Every diagonal step of a 1-RHS sweep goes through the triangle
+    kernel, every round's K row-major as it reads it: the eager sweep and the capture each count one launch a
+    diagonal block, a replay none (it runs no host code), and the
+    replayed sweep gives the eager sweep's bits."""
+    eng, _ = _card_engine(card, problem)
+    # every round's K row-major, the library LU's tree-top rounds included
+    assert all(K.is_contiguous() for K, *_ in eng.factors)
+    B = np.random.default_rng(31).standard_normal(eng.flat_len)
+    got = []
+    for route in ("eager", "captured", "replayed", "replayed"):
+        before = ck.LAUNCHES["tri_block_apply_f64"]
+        got.append(eng.solve(B))
+        launched = ck.LAUNCHES["tri_block_apply_f64"] - before
+        assert launched == (0 if route == "replayed" else _diag_blocks(eng))
+    assert eng.sweep_counts == dict(eager=1, captured=1, replayed=2)
+    assert all(np.array_equal(x, got[0]) for x in got[1:])
+
+
+@pytest.mark.cuda
+def test_replayed_sweep_forms_no_triangle_copies(card, problem):
+    """A profiler over one replayed 1-RHS sweep lists the triangle kernel
+    and no triu / tril kernel: the diagonal blocks are read as stored."""
+    eng, _ = _card_engine(card, problem)
+    W = torch.zeros((eng.flat_len + 1, 1), dtype=torch.float64, device=card)
+    W[:eng.flat_len] = 1.0
+    for _ in range(2):
+        eng.solve_workspace(W.clone())
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize(card)
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.solve_workspace(W.clone())
+        torch.cuda.synchronize(card)
+    assert eng.sweep_counts["replayed"] == 1
+    names = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA}
+    assert any("tri_block_apply" in n for n in names), names
+    assert not any("triu_tril" in n for n in names), names
