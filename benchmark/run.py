@@ -7,8 +7,13 @@ one cell of ``BENCHMARK.json`` for ``--seconds`` on one CUDA card.
 A cell names a configuration (``benchmark/configs/<name>.json``: the grid,
 the assembly options, the leaf size, the factor precision, the solve
 tolerance and the limits of the check) and a traffic mix
-(``benchmark/traffic/<name>.json``). Every metric is read by its own file,
-``benchmark/metrics/<name>.py`` (``read(run) -> float | None``). Adding a
+(``benchmark/traffic/<name>.json``), whose ``values`` say how a step's
+Jacobian values are drawn: ``nonzeros`` (the default: each nonzero of the
+configuration's CSR times 1 + ``value_perturbation`` z, handed to the
+program on the host) or ``fields`` (each entry of stage 1's coefficient
+fields times 1 + ``field_perturbation`` z, re-assembled on the card by the
+port's own update plan: ``FieldUpdate``). Every metric is read by its own
+file, ``benchmark/metrics/<name>.py`` (``read(run) -> float | None``). Adding a
 configuration, a mix or a metric adds files and entries; nothing here
 names one.
 
@@ -61,6 +66,8 @@ HOST_THREADS = 4
 THREAD_ENV = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 # the mixes' closed loop of one client is the only load the harness makes
 LOOPS = {("closed", 1)}
+# how a mix draws each step's Jacobian values
+VALUE_KINDS = ("nonzeros", "fields")
 # steps whose phases the log lists, one line each: the first ones, and
 # every one past the refiner's plain refinement (two corrections) or
 # failed
@@ -148,11 +155,91 @@ def problem(name: str, config: dict) -> dict:
     if not path.exists():
         arrays = stage1.assemble(config)
         path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(".tmp.npz")
+        # one temporary name a process: parallel test workers build the
+        # same matrix at once
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.npz")
         np.savez(tmp, **arrays)
         os.replace(tmp, path)
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+class FieldUpdate:
+    """The program's side of a ``fields`` mix: the port's update plan of
+    the configuration's assembly, which makes each step's values on the
+    card.
+
+    Set-up builds the port's ``Assembly`` from the frozen stage 1's
+    circulation (held in memory, ``DictFieldSource``) and its update plan,
+    which checks itself bit for bit against the configuration's CSR; it
+    uploads the stacked fields, the seed's pool of z (``reference/fields``)
+    and one index that maps stage 1's slot-major order of the pool onto the
+    plan's stacked layout. A step then slices the pool at its offset,
+    gathers it into that layout, forms c = 1 + scale z on the card, folds
+    ``stacked0 * c`` into the CSR's values and copies them to the host."""
+
+    def __init__(self, config: dict, matrix, seed: int, scale: float, dev):
+        import numpy as np
+        import torch
+
+        from benchmark.reference import fields, stage1
+        from nk_ocn_tracer_jacobian_precond_tpu_torch.grid import (
+            Grid, gen_ind_maps)
+        from nk_ocn_tracer_jacobian_precond_tpu_torch.ops import (
+            AssemblyOptions, PerTracerOptions, assemble_jacobian,
+            device_update)
+        from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.fieldsource import (
+            DictFieldSource)
+        from nk_ocn_tracer_jacobian_precond_tpu_torch.ops.hmix import IRF_NAME
+
+        g, a = config["grid"], config["assembly"]
+        imt, jmt, km = g["imt"], g["jmt"], g["km"]
+        f = stage1.circulation(imt, jmt, km, config["circulation_seed"],
+                               a["adv_type"])
+        unused = np.zeros((jmt, imt))    # the assembly reads no TLONG, TLAT
+        grid = Grid(imt=imt, jmt=jmt, km=km, z_t=f["z_t"], dz=f["dz"],
+                    TLONG=unused, TLAT=unused, KMT=f["KMT"], KMU=f["KMU"],
+                    TAREA=f["TAREA"])
+        data = {k: f[k] for k in ("UVEL", "VVEL", "WVEL", "DXU", "DYU",
+                                  "VDC_S", "VDC_GM")}
+        for c in range(36):          # (ip, jp, kp) row-major
+            data[IRF_NAME.format(c // 9 + 1, c // 3 % 3 + 1, c % 3 + 1)] = \
+                f["IRF"][c]
+        for name, (pos, neg) in f["POS_NEG"].items():
+            data[f"{name}_POS"], data[f"{name}_NEG"] = pos, neg
+        opts = AssemblyOptions(
+            day_cnt=a["day_cnt"], adv_type=a["adv_type"],
+            l_adv_enforce_divfree=a.get("l_adv_enforce_divfree", True),
+            hmix_type=a["hmix_type"], vmix_type=a["vmix_type"],
+            per_tracer=[PerTracerOptions(sink_type=a["sink_type"],
+                                         sink_rate=a["sink_rate"])])
+        asm = assemble_jacobian(grid, opts, DictFieldSource(data), None,
+                                gen_ind_maps(grid.KMT, km))
+        self.plan = device_update.build_update_plan(asm, matrix)
+        slots = fields.slot_offsets(a["adv_type"])
+        keys = [("self", 0) if off == stage1.SELF else ("shared", off)
+                for off in slots]
+        if set(self.plan.layout) != set(keys):
+            raise SystemExit(f"run.py: the update plan holds fields "
+                             f"{sorted(set(self.plan.layout) - set(keys))} "
+                             f"that stage 1's slots do not")
+        cells = km * jmt * imt
+        idx = np.empty(self.plan.total, dtype=np.int64)
+        for s, key in enumerate(keys):
+            base = self.plan.layout[key][0]
+            idx[base:base + cells] = np.arange(s * cells, (s + 1) * cells)
+        self.seed, self.scale, self.length = seed, scale, len(slots) * cells
+        self.offset = fields.offset
+        self.idx = torch.from_numpy(idx).to(dev)
+        self.stacked0 = torch.from_numpy(self.plan.stack_fields(asm)).to(dev)
+        self.pool = torch.from_numpy(fields.pool(seed, self.length)).to(dev)
+
+    def __call__(self, index: int):
+        """Step ``index``'s values, on the host."""
+        o = self.offset(self.seed, index, self.length)
+        z = self.pool[o:o + self.length][self.idx]
+        c = 1.0 + self.scale * z.double()
+        return self.plan.update(self.stacked0 * c).cpu().numpy()
 
 
 class Run:
@@ -183,7 +270,7 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     import torch
 
     from benchmark import trace as tr
-    from benchmark.reference import check
+    from benchmark.reference import check, fields
     from nk_ocn_tracer_jacobian_precond_tpu_torch.device import resolve_device
     from nk_ocn_tracer_jacobian_precond_tpu_torch.grid.indmap import (
         IndexMaps)
@@ -205,6 +292,10 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
         raise SystemExit(f"run.py: {cell['traffic']}: a {traffic['loop']} "
                          f"loop of {traffic['clients']} clients; the harness "
                          f"drives {sorted(LOOPS)}")
+    kind = traffic.get("values", "nonzeros")
+    if kind not in VALUE_KINDS:
+        raise SystemExit(f"run.py: {cell['traffic']}: values {kind!r}; the "
+                         f"harness draws {VALUE_KINDS}")
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
 
@@ -218,10 +309,18 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     maps = IndexMaps(tracer_state_len=n, int3_to_ind=prob["int3_to_ind"],
                      ind_to_i=prob["ind_to_i"], ind_to_j=prob["ind_to_j"],
                      ind_to_k=prob["ind_to_k"])
-    values = check.Values(prob["nzval"], seed, traffic["value_perturbation"])
+    update = None
+    if kind == "fields":
+        # the configuration's own values first (the cold factor); each
+        # step's from the program's update, made once set-up has built it
+        def new_values(index: int):
+            return prob["nzval"] if index == 0 else update(index)
+    else:
+        new_values = check.Values(prob["nzval"], seed,
+                                  traffic["value_perturbation"])
 
     def matrix(index: int) -> SparseMatrix:
-        return SparseMatrix(nzval=values(index), colind=colind,
+        return SparseMatrix(nzval=new_values(index), colind=colind,
                             rowptr=rowptr,
                             coupled_tracer_cnt=config["coupled_tracer_cnt"])
 
@@ -236,6 +335,11 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
         precision=prec)
     sync()
     t_cold = time.perf_counter()
+    if kind == "fields":
+        update = FieldUpdate(config, matrix(0), seed,
+                             traffic["field_perturbation"], dev)
+        sync()
+    t_plan = time.perf_counter()
     refactor = traffic["refactor_every_step"]
     nrhs = traffic["rhs_per_step"]
     steps: list[dict] = []
@@ -245,7 +349,8 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
         rec = dict(index=index, phase=phase, nrhs=nrhs)
         t0 = time.perf_counter()
         if refactor:
-            m = matrix(index)
+            with torch.profiler.record_function("bench.values"):
+                m = matrix(index)
             rec["values_s"] = time.perf_counter() - t0
             with torch.profiler.record_function("bench.refactor"):
                 t_r = time.perf_counter()
@@ -305,7 +410,7 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     plans = fac.engine.plans
     dtype = str(fac.engine.prec).removeprefix("torch.")
     nnz = int(len(prob["nzval"]))
-    del fac, sym
+    del fac, sym, update
     if cuda:
         torch.cuda.empty_cache()
 
@@ -322,8 +427,16 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     # the reference: every step's solutions (warm-up, window and traced),
     # judged against values it draws itself
     t_judge = time.perf_counter()
-    ref = check.Reference(prob["nzval"], colind, rowptr, seed,
-                          traffic["value_perturbation"])
+    if kind == "fields":
+        # the reference's own fields, pattern and draws
+        ref_values = fields.FieldValues(config, seed,
+                                        traffic["field_perturbation"])
+        ref = check.Reference(ref_values.nzval0, ref_values.colind,
+                              ref_values.rowptr, seed, 0.0)
+    else:
+        ref = check.Reference(prob["nzval"], colind, rowptr, seed,
+                              traffic["value_perturbation"])
+        ref_values = ref.values
     limits = config["limits"]
     worst, failed_idx = 0.0, set()
     by_values: dict = {}
@@ -331,14 +444,14 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
         by_values.setdefault(s["index"] if refactor else 0, []).append(s)
     for index, group in by_values.items():
         rels = ref.residuals(
-            ref.values(index), [s.pop("X") for s in group],
+            ref_values(index), [s.pop("X") for s in group],
             [check.step_rhs(n, seed, s["index"], nrhs) for s in group])
         for s, rel in zip(group, rels):
             s["judged"] = float(rel.max())
             worst = max(worst, s["judged"])
             if not rel.max() <= limits["max_rel_residual"]:
                 failed_idx.add(s["index"])
-    raw = float(ref.residuals(ref.values(raw_index), [x_raw],
+    raw = float(ref.residuals(ref_values(raw_index), [x_raw],
                               [b_raw])[0].max())
     judge_s = time.perf_counter() - t_judge
     checks = {"max_rel_residual": {"value": worst,
@@ -384,7 +497,8 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float,
     log(f"# set-up {setup_s:.3f} s: to run_cell's imports "
         f"{t_imported - t0:.3f}, matrix {t_problem - t_imported:.3f}, "
         f"symbolic {t_symbolic - t_problem:.3f}, cold factor "
-        f"{t_cold - t_symbolic:.3f}, card state {t_state - t_cold:.3f}, "
+        f"{t_cold - t_symbolic:.3f}, update plan {t_plan - t_cold:.3f}, "
+        f"card state {t_state - t_plan:.3f}, "
         f"warm-up {t_start - t_state:.3f}")
     log(f"# window: process cpu {cpu1.user - cpu0.user:.3f} s user "
         f"{cpu1.system - cpu0.system:.3f} s system of {window_s:.3f} s; "

@@ -22,15 +22,15 @@ import json  # noqa: E402
 import pytest  # noqa: E402
 
 TINY = "tiny_centered"
-MIXES = ("refactor_solve", "apply")
+MIXES = ("nk_device", "apply")
 
 
 @pytest.fixture(scope="session")
 def tiny_spec():
     """BENCHMARK.json with the test-only tiny configuration's cells added,
     each reporting what the benchmark's cells of the same mix report. The
-    refactor mix's metrics, whose cells wait on the program (PERF.md,
-    Open questions), come from ``refactor_metrics.json`` where
+    Newton-iteration mix's metrics, whose cell waits on the program
+    (PERF.md, Open questions), come from ``refactor_metrics.json`` where
     BENCHMARK.json does not name them."""
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     spec["configs"].append(dict(
@@ -45,12 +45,16 @@ def tiny_spec():
             if twins & set(m.get("workloads", [])):
                 m["workloads"].append(cell)
     names = {m["name"] for m in spec["end_to_end"] + spec["per_layer"]}
-    pending = json.loads((ROOT / "benchmark" / "tests"
-                          / "refactor_metrics.json").read_text())
-    for kind, entries in pending.items():
-        spec[kind] += [dict(m, workloads=[f"{TINY}.refactor_solve"])
+    for kind, entries in pending_metrics().items():
+        spec[kind] += [dict(m, workloads=[f"{TINY}.nk_device"])
                        for m in entries if m["name"] not in names]
     return spec
+
+
+def pending_metrics() -> dict:
+    """The metrics of the Newton-iteration mix kept for its cell."""
+    return json.loads((ROOT / "benchmark" / "tests"
+                       / "refactor_metrics.json").read_text())
 
 
 @pytest.fixture(autouse=True)

@@ -18,7 +18,7 @@ def quiet(_msg):
 
 @pytest.mark.parametrize("mix", MIXES)
 def test_the_control_is_not_correct(tiny_spec, mix):
-    stale = [31, 32] if mix == "refactor_solve" else []
+    stale = [31, 32] if mix == "nk_device" else []
     rows = control.readings(tiny_spec, f"{TINY}.{mix}", 0.3, [11],
                             [21, 22, 23], stale, device="cpu", log=quiet)
     program, ctl, flt = rows[0], rows[1:4], rows[4:]
@@ -70,7 +70,7 @@ FAULTS = {
                        _solve_fault("answer_altered")),
 }
 CASES = [(mix, f) for mix in MIXES for f in FAULTS
-         if mix == "refactor_solve" or not f.startswith("state")]
+         if mix == "nk_device" or not f.startswith("state")]
 
 
 @pytest.mark.parametrize("mix,fault", CASES)

@@ -83,9 +83,8 @@ def test_result_line(spec, trace):
 def test_the_cells_share_the_apply_metrics():
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     for cell in ("gx3deep_centered.apply", TWIN):
-        old = {"host_residual_ms.apply"} if cell != TWIN else set()
         assert {m["name"] for m in run.cell_metrics(spec, cell, True)} \
-            == LISTED[1] | old
+            == LISTED[1]
         assert {m["name"] for m in run.cell_metrics(spec, cell, False)} \
             == LISTED[0]
 
